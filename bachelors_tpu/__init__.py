@@ -1,12 +1,12 @@
-"""bachelors_tpu: a TPU-native phase-field solidification framework.
+"""bachelors_tpu: a phase-field solidification framework in JAX.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of the reference
+A ground-up JAX/XLA re-design of the capabilities of the reference
 CUDA dendritic-growth solver (Boostibot/bachelors): coupled anisotropic
 Allen-Cahn + heat equation on regular 2D grids, four time integrators
 (explicit Euler, RK4, adaptive Runge-Kutta-Merson, semi-implicit with
 matrix-free CG), config-driven driver, snapshot/stats pipelines, and --
-beyond the reference -- multi-chip domain decomposition via shard_map halo
-exchange over ICI.
+beyond the reference -- multi-device domain decomposition via shard_map
+halo exchange.
 """
 from .core.params import (BoundaryType, SimParams, SolverType,
                           MAX_STEP_RESIDUALS, rewire_params_for_exact)

@@ -24,7 +24,7 @@ def run_selftests() -> bool:
     ok = True
 
     # stencil RHS finite + antisymmetry of laplacian under constant shift
-    p = SimParams(nx=32, ny=16, backend="xla")
+    p = SimParams(nx=32, ny=16)
     F = rng.random((16, 32)).astype(np.float32)
     U = rng.random((16, 32)).astype(np.float32)
     dF, dU = eval_rhs([(F, U)], [1.0], p, topo)

@@ -1,12 +1,12 @@
 """Render markdown tables from sweep report JSONs.
 
-Keeps RESULTS.md/README tables mechanically derivable from the committed
-artifacts: every number in the ladder tables comes from a
-``bench.sweep``-produced JSON plus the reference's published totals
-(`BASELINE.md`, source `benchmark_ellapsed_times.txt:1-144`).
+Keeps ladder tables mechanically derivable from measured artifacts:
+every number in the ladder tables comes from a ``bench.sweep``-produced
+JSON plus the reference's published totals (`BASELINE.md`, source
+`benchmark_ellapsed_times.txt:1-144`).
 
 CLI:
-  python -m bachelors_tpu.bench.report sweep_r3.json [sweep_r3_f64.json]
+  python -m bachelors_tpu.bench.report sweep.json [sweep_f64.json]
 """
 from __future__ import annotations
 

@@ -1,9 +1,9 @@
 """Simulation parameters and enums.
 
-TPU-native analog of the reference C ABI data model (`simulation.h:27-130`):
+Analog of the reference C ABI data model (`simulation.h:27-130`):
 ``Sim_Solver_Type`` / ``Sim_Boundary_Type`` enums and the ``Sim_Params`` struct.
 
-Design notes (TPU-first):
+Design notes:
   * ``SimParams`` is a frozen, hashable dataclass and is passed to jitted
     steppers as a *static* argument.  XLA constant-folds every physics
     coefficient into the compiled stencil, the same way the reference bakes
@@ -102,17 +102,15 @@ class SimParams:
     do_stats: bool = False
     do_stats_step_residual: bool = False
 
-    # TPU-specific knobs (no reference counterpart / replaces USE_FLOATS,
-    # `simulation.h:18-25`: on TPU f32 is the fast path, f64 for validation)
+    # Precision (replaces the reference's compile-time USE_FLOATS,
+    # `simulation.h:18-25`): float32 or float64
     dtype: str = "float32"
     # The reference deliberately evaluates atan2/cos/hypot in f32 even in
     # f64 builds (`simulation.cu:14-17`); replicated here.
     f32_transcendentals: bool = True
-    # Kernel backend for the fused RHS: "auto" | "pallas" | "xla"
-    backend: str = "auto"
     # Reverse-mode differentiability through the semi-implicit CG solves
     # (lax.custom_linear_solve adjoints).  Costs iteration-count diagnostics
-    # (reported as -1) and forces the XLA backend inside the solves.
+    # (reported as -1) and turns off Jacobi preconditioning.
     differentiable: bool = False
 
     # ---- derived helpers (not fields) ----

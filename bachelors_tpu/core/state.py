@@ -2,7 +2,7 @@
 
 The reference keeps fields as raw device pointers in ``Sim_Map`` descriptors
 (`simulation.h:46-54`) with a host-driven double-buffer swap
-(`main.cpp:557-558`).  TPU-natively the state is an immutable pytree and the
+(`main.cpp:557-558`).  Here the state is an immutable pytree and the
 stepper is a pure function ``state -> state``; XLA's buffer donation replaces
 the manual double-buffering protocol.
 """

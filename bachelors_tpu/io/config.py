@@ -12,7 +12,10 @@ Extensions over the reference:
     passes any, `config.h:410-411`, `main.cpp:253`);
   * ``[initial] init_path`` resumes from a ``.bin`` snapshot -- declared but
     never implemented upstream (`config.h:20`);
-  * optional ``[tpu]`` section: dtype / backend / mesh shards.
+  * optional ``[tpu]`` section: dtype / mesh shards / ensemble.  The
+    section keeps its historical name, so existing configs still parse;
+    ``backend`` stays a readable key (``auto`` and ``xla`` both run the one
+    XLA path).
 """
 from __future__ import annotations
 
@@ -175,12 +178,7 @@ class SimConfig:
     display_max: float = 1.0
     debug: bool = False
 
-    # TPU extensions.  Mesh shape: PREFER 1D shards_y = n_chips -- the
-    # whole-integrator ghost-slab kernels (one ppermute pair per field per
-    # step) exist only on y-meshes; a (y, x) mesh falls back to per-stage
-    # halo exchanges (~10x the collectives; quantified in
-    # docs/ARCHITECTURE.md "Mesh-shape recommendation").  Use shards_x
-    # only when ny/16 < n_chips or a shard's nx would drop below 128.
+    # [tpu] section extensions: device mesh shape, ensemble size
     shards_y: int = 1
     shards_x: int = 1
     ensemble: int = 1
@@ -188,30 +186,8 @@ class SimConfig:
     multihost: bool = False  # jax.distributed autodetect (pods/SLURM/k8s)
 
 
-def _fused_kernel_gap(p: SimParams, shards_y: int, shards_x: int) -> Optional[str]:
-    """Why a backend=auto config would NOT engage the fused Pallas kernels
-    on TPU (None = it tiles).  Mirrors the geometry gates of
-    `ops.pallas_rhs.supports` / `ops.pallas_dd.supports_dd`, evaluated on
-    the per-shard local shape."""
-    ny_l = p.ny // max(shards_y, 1)
-    nx_l = p.nx // max(shards_x, 1)
-    view = p.replace(ny=ny_l, nx=nx_l)
-    if p.dtype == "float64":
-        from ..ops.pallas_dd import supports_dd
-        ok = supports_dd(view)
-    else:
-        from ..ops.pallas_rhs import supports
-        ok = supports(view)
-    if ok:
-        return None
-    if nx_l % 128 != 0:
-        return f"nx per shard ({nx_l}) is not a multiple of 128"
-    if ny_l % 8 != 0 or ny_l < 16:
-        return f"ny per shard ({ny_l}) is not a multiple of 8 that is >= 16"
-    if p.S != 0.0 and not (float(p.m0).is_integer() and p.m0 >= 1):
-        return (f"anisotropy needs integer m0 >= 1 for the VPU angle "
-                f"recurrence (m0 = {p.m0:g})")
-    return "no row tile fits the VMEM budget at this nx"
+# accepted values of `[tpu] backend`; both run the one XLA path
+BACKENDS = ("auto", "xla")
 
 
 def load_config(path: str, overrides: Optional[List[str]] = None) -> SimConfig:
@@ -259,8 +235,15 @@ def parse_config(text: str, overrides: Optional[List[str]] = None) -> SimConfig:
         do_corrector_guess=b.get_bool(S, "do_corrector_guess"),
         min_dt=b.get_float(S, "min_dt", 0.0, required=False),
         dtype=b.get_str("tpu", "dtype", "float32", required=False),
-        backend=b.get_str("tpu", "backend", "auto", required=False),
     )
+    backend = b.get_str("tpu", "backend", "auto", required=False).lower()
+    if backend == "pallas":
+        raise ConfigError(
+            "[tpu] backend = pallas: the hand-written Pallas kernels were "
+            "removed; every config runs the XLA path (use auto or xla)")
+    if backend not in BACKENDS:
+        b.missing.append(f"[tpu] backend (unknown backend: {backend!r}; "
+                         f"expected one of {', '.join(BACKENDS)})")
 
     I = "initial"
     ic = InitialConditions(
@@ -334,19 +317,6 @@ def parse_config(text: str, overrides: Optional[List[str]] = None) -> SimConfig:
         do_stats_step_residual=cfg.collect_step_residual,
     )
 
-    if cfg.params.backend == "auto":
-        # backend=auto silently resolves to the XLA path on TPU when the
-        # config does not tile for the fused kernels
-        # (`ops.rhs._resolve_backend`) -- running at a fraction of the
-        # fused speed with no signal.  Name the violated constraint at
-        # config time (backend=pallas raises at run time instead, and
-        # backend=xla is an explicit opt-out).
-        gap = _fused_kernel_gap(cfg.params, cfg.shards_y, cfg.shards_x)
-        if gap:
-            log.warn(
-                "[tpu] backend=auto: this config cannot engage the fused "
-                f"Pallas kernels on TPU ({gap}); it will run the XLA "
-                "fallback path at a fraction of the fused-kernel speed.")
     if b.missing:
         raise ConfigError(
             "couldn't find or parse config entries: " + ", ".join(b.missing))

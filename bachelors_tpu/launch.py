@@ -1,26 +1,27 @@
-"""Multi-process launcher: the TPU-native analog of the reference's PBS
-qsub generation (`benchmark_configs/generator.py:203-226`).
+"""Multi-process launcher: the analog of the reference's PBS qsub
+generation (`benchmark_configs/generator.py:203-226`).
 
-The reference submits single-GPU jobs to a PBS cluster; the TPU-native
+The reference submits single-GPU jobs to a PBS cluster; here the
 deployment story has two shapes:
 
-* **Real pod slices / clusters** (Cloud TPU, GKE, SLURM, OpenMPI): start
-  the SAME driver command on every host and set ``[tpu] multihost = true``
-  (or ``--set tpu.multihost=true``); `jax.distributed.initialize()`
-  autodetects the cluster (jax._src.clusters) and the existing mesh /
-  shard_map machinery spans all hosts -- halos at host seams ride DCN.
+* **Clusters** (SLURM, k8s, OpenMPI): start the SAME driver command on
+  every host and set ``[tpu] multihost = true`` (or
+  ``--set tpu.multihost=true``); `jax.distributed.initialize()` autodetects
+  the cluster (jax._src.clusters) and the existing mesh / shard_map
+  machinery spans all hosts.
 
 * **Local multi-process** (development, CI, single host): this module.
   ``python -m bachelors_tpu.launch -n 2 [--platform cpu --cpu-devices 2]
   config.ini [--set ...]`` spawns n driver processes wired into one
   jax.distributed cluster via the BTPU_* environment contract below; the
-  primary process writes all artifacts.
+  primary process writes all artifacts.  Off the CPU platform each process
+  is given its own GPU through ``CUDA_VISIBLE_DEVICES`` (process i takes
+  the i-th visible card), since a JAX process preallocates most of the
+  memory of every card it sees.
 
 Environment contract (read by ``app.driver.main`` before any backend use):
   BTPU_COORD / BTPU_NPROCS / BTPU_PID   explicit jax.distributed wiring
-  BTPU_PLATFORM                         force a jax platform (config API --
-                                        env vars bind too late: jax is
-                                        pre-imported in some environments)
+  BTPU_PLATFORM                         force a jax platform
   BTPU_CPU_DEVICES                      virtual CPU device count per process
 """
 from __future__ import annotations
@@ -39,15 +40,25 @@ def find_free_port() -> int:
         return s.getsockname()[1]
 
 
+def card_assignment(nprocs: int, visible: Optional[str]) -> List[str]:
+    """The ``CUDA_VISIBLE_DEVICES`` value of each of ``nprocs`` processes:
+    one card each, taken in order from ``visible`` (the launcher's own
+    ``CUDA_VISIBLE_DEVICES``) or from cards 0..nprocs-1 when it is unset."""
+    ids = ([c.strip() for c in visible.split(",") if c.strip()]
+           if visible else [str(i) for i in range(nprocs)])
+    if len(ids) < nprocs:
+        raise ValueError(f"{nprocs} processes need {nprocs} cards, "
+                         f"CUDA_VISIBLE_DEVICES lists {len(ids)}")
+    return ids[:nprocs]
+
+
 def launch(nprocs: int, argv: List[str], platform: Optional[str] = None,
            cpu_devices: int = 0, coordinator: Optional[str] = None) -> int:
     """Spawn ``nprocs`` driver processes; returns the worst exit code."""
     coord = coordinator or f"127.0.0.1:{find_free_port()}"
-    # make the package importable from any cwd (it may not be pip-installed;
-    # note: PYTHONPATH can interfere with TPU plugin registration in some
-    # environments -- fine here since local multi-process runs force a
-    # platform explicitly, and pod deployments use an installed package)
+    # make the package importable from any cwd (it may not be pip-installed)
     pkg_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cards = card_assignment(nprocs, os.environ.get("CUDA_VISIBLE_DEVICES"))
     procs = []
     for pid in range(nprocs):
         env = dict(os.environ,
@@ -55,6 +66,8 @@ def launch(nprocs: int, argv: List[str], platform: Optional[str] = None,
                    BTPU_NPROCS=str(nprocs),
                    BTPU_PID=str(pid),
                    PYTHONPATH=pkg_root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        if platform != "cpu":
+            env["CUDA_VISIBLE_DEVICES"] = cards[pid]
         if platform:
             env["BTPU_PLATFORM"] = platform
         if cpu_devices:

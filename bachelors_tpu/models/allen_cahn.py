@@ -17,10 +17,9 @@ The optional "corrector guess" variant divides the phase update by
 ``1 + k2*dt*L`` and adds ``dt*lap(T)`` to the temperature seen by the phase
 equation (`simulation.cu:224-227`) -- a cheap implicit-coupling guess.
 
-TPU notes:
-  * Everything is (ny, nx) vectorized VPU work; XLA fuses the whole RHS into
-    a few loop nests.  The Pallas backend (`ops/pallas_rhs.py`) fuses it into
-    exactly one HBM pass.
+Notes:
+  * Everything is (ny, nx) vectorized elementwise work; XLA fuses a whole
+    RHS stage into one multi-output loop fusion.
   * Like the reference (`simulation.cu:14-17`), transcendentals (atan2, cos,
     hypot) are evaluated in f32 even when fields are f64 -- a deliberate
     precision/speed decision replicated via ``params.f32_transcendentals``.
@@ -47,9 +46,8 @@ def blend(arrays: Sequence[jnp.ndarray], weights: Sequence[jnp.ndarray]) -> jnp.
 
     The analog of the variadic ``Explicit_Blend_State`` gather
     (`simulation.cu:139-199`): each RK stage evaluates the RHS at
-    ``x + sum_i w_i * k_i`` without materializing the blended state in HBM
-    (XLA fuses this into the consuming stencil; the Pallas kernel blends
-    in-VMEM).
+    ``x + sum_i w_i * k_i`` without materializing the blended state in
+    device memory (XLA fuses this into the consuming stencil).
     """
     acc = arrays[0] * weights[0]
     for a, w in zip(arrays[1:], weights[1:]):

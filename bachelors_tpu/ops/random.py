@@ -5,7 +5,7 @@ The capability analog of the reference's device RNG module
 (`random_map_32/64`, `:198-230`) and gradient (Perlin) noise with octave
 stacking and min-max renormalization (`perlin2d_generate`, `:242-364`).
 
-TPU-native design: JAX's counter-based threefry PRNG replaces the
+Design: JAX's counter-based threefry PRNG replaces the
 hand-rolled PCG/splitmix (stateless, reproducible, vectorized), and the
 Perlin lattice evaluation is pure vectorized gather+lerp -- one fused XLA
 kernel, no per-cell hashing loops.  Typical use: noisy initial conditions

@@ -1,10 +1,10 @@
 """Fused field statistics and norms.
 
-TPU-native analog of the reference's generic reduction machinery
+Analog of the reference's generic reduction machinery
 (`cuda_reduction.cuh`): the warp-shuffle/shared-memory multi-pass tree is
 replaced by XLA's native reduction lowering; the fused single-pass
 ``Reduce::Stats`` {sum, L1, L2, min, max} (`cuda_reduction.cuh:333-406`) maps
-to one jnp expression that XLA fuses into a single HBM pass; on a device
+to one jnp expression that XLA fuses into a single memory pass; on a device
 mesh, the per-shard partials are combined with psum/pmax/pmin collectives.
 """
 from __future__ import annotations

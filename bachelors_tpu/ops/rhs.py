@@ -1,31 +1,25 @@
-"""RHS evaluation chokepoint: blend -> pad -> fused stencil.
+"""RHS evaluation chokepoint: blend -> pad -> stencil.
 
-Every explicit stage in every integrator funnels through ``eval_rhs``; this
-is where the kernel backend is selected:
-
-  * "xla":    pure-jnp reference path (`models/allen_cahn.rhs_padded`) --
-              also the correctness oracle, mirroring the role of the CPU
-              oracles in the reference test strategy (SURVEY §4).
-  * "pallas": single fused Pallas kernel doing blend + BC + stencil in one
-              HBM pass (`ops/pallas_rhs.py`), the analog of the reference's
-              one-kernel-per-stage ``explicit_solver_solve_lin_combination``
-              (`simulation.cu:145-243`).
-  * "auto":   pallas on TPU when supported for the given config, else xla.
+Every explicit stage in every integrator funnels through ``eval_rhs``: the
+stage states are blended, padded once with BC-correct ghost cells and fed
+to the plain-jnp physics (`models/allen_cahn.rhs_padded`).  XLA fuses the
+blend, the pad, the shifted views and the pointwise physics into loop
+fusions -- the analog of the reference's one-kernel-per-stage
+``explicit_solver_solve_lin_combination`` (`simulation.cu:145-243`).
 
 Blend-vs-pad ordering: the reference applies the BC to each state and then
 blends the *samples* (`simulation.cu:193-197`).  For periodic/Neumann BCs
 sampling is a selection (linear), and for Dirichlet the ghost value is
 affine (2d - m), so blending samples equals padding the blended field with
 an effective Dirichlet value d_eff = d * sum(weights).  We therefore blend
-first and pad once -- 4x fewer ICI halo exchanges per RKM stage when
-sharded -- and pass d_eff for exactness (d = 0 in every shipped config, where
-the two orders are bit-identical).
+first and pad once -- 4x fewer halo exchanges per RKM stage when sharded --
+and pass d_eff for exactness (d = 0 in every shipped config, where the two
+orders are bit-identical).
 """
 from __future__ import annotations
 
 from typing import Sequence, Tuple
 
-import jax
 import jax.numpy as jnp
 
 from ..core.params import SimParams
@@ -65,21 +59,6 @@ def eval_rhs(
         d_eff = 0.0
     else:
         d_eff = dirichlet_value * _weight_sum(weights)
-
-    backend = _resolve_backend(p, topo, len(states),
-                               ny_local=states[0][0].shape[0],
-                               nx_local=states[0][0].shape[1])
-    if backend == "pallas":
-        from .pallas_rhs import blend_rhs_pallas
-
-        return blend_rhs_pallas(states, weights, p, fu=fu, dirichlet_value=d_eff)
-    if backend == "pallas_sharded":
-        from .pallas_rhs import blend_rhs_pallas_sharded
-
-        return blend_rhs_pallas_sharded(states, weights, p, topo.axis_y,
-                                        fu=fu, dirichlet_value=d_eff,
-                                        axis_x=topo.axis_x)
-
     Fb, Ub = _blend_states(states, weights)
     Fp = topo.pad(Fb, p.Phi_boundary, d_eff)
     Up = topo.pad(Ub, p.T_boundary, d_eff)
@@ -89,72 +68,10 @@ def eval_rhs(
 def euler_eval(
     states, weights, p: SimParams, topo: Topology, fu=0.0, dirichlet_value=0.0,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Fused Euler write ``x + dt * f(x)`` (the IS_EULER=true kernel mode,
+    """Euler write ``x + dt * f(x)`` (the IS_EULER=true kernel mode,
     `simulation.cu:231-240`)."""
-    backend = _resolve_backend(p, topo, len(states),
-                               ny_local=states[0][0].shape[0],
-                               nx_local=states[0][0].shape[1])
-    if backend == "pallas":
-        from .pallas_rhs import blend_rhs_pallas
-
-        return blend_rhs_pallas(states, weights, p, fu=fu,
-                                dirichlet_value=dirichlet_value, is_euler=True)
-    if backend == "pallas_sharded":
-        from .pallas_rhs import blend_rhs_pallas_sharded
-
-        return blend_rhs_pallas_sharded(states, weights, p, topo.axis_y,
-                                        fu=fu, dirichlet_value=dirichlet_value,
-                                        is_euler=True, axis_x=topo.axis_x)
     Fb, Ub = _blend_states(states, weights)
     Fp = topo.pad(Fb, p.Phi_boundary, dirichlet_value)
     Up = topo.pad(Ub, p.T_boundary, dirichlet_value)
     dF, dU = rhs_padded(Fp, Up, p, fu)
     return Fb + p.dt * dF, Ub + p.dt * dU
-
-
-def _resolve_backend(p: SimParams, topo: Topology, n_states: int = 1,
-                     ny_local: int = 0, nx_local: int = 0,
-                     for_cg: bool = False) -> str:
-    """Pick the kernel backend: "pallas" (single chip), "pallas_sharded"
-    (1D/2D decomposition inside shard_map: ghost rows on y-sharded axes,
-    ghost columns on x-sharded axes, over ICI + fused kernel per shard),
-    or "xla" (oracle / fallback).  ``for_cg`` is kept for call-site
-    documentation; the fused CG matvecs now support every mesh shape the
-    RHS kernels do (ghost rows and/or columns)."""
-    if p.backend == "xla":
-        return "xla"
-    from .pallas_rhs import supports, supports_sharded
-
-    if topo.is_sharded:
-        if (ny_local
-                and supports_sharded(p, ny_local, n_states,
-                                     nx_local=nx_local)
-                and _on_tpu_or_forced(p)):
-            return "pallas_sharded"
-        if p.backend == "pallas":
-            raise ValueError(
-                "backend='pallas' requested but the sharded fused kernels "
-                f"do not support this topology/config (local shard "
-                f"{ny_local}x{nx_local or p.nx} dtype={p.dtype} does not "
-                "tile); use backend='auto' to fall back to XLA")
-        return "xla"
-
-    if p.backend == "pallas":
-        if not supports(p, n_states):
-            raise ValueError(
-                f"backend='pallas' requested but unsupported for {p.ny}x{p.nx} "
-                f"dtype={p.dtype}")
-        return "pallas"
-    # auto: fused Pallas kernel on real TPU when the config tiles cleanly
-    if not _on_tpu_or_forced(p):
-        return "xla"
-    return "pallas" if supports(p, n_states) else "xla"
-
-
-def _on_tpu_or_forced(p: SimParams) -> bool:
-    if p.backend == "pallas":
-        return True
-    try:
-        return jax.default_backend() == "tpu"
-    except Exception:  # pragma: no cover
-        return False

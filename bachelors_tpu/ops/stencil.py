@@ -1,11 +1,11 @@
 """5-point stencil linear operators for the semi-implicit (CG) path.
 
-TPU-native analogs of the reference's matrix-free operators:
+Analogs of the reference's matrix-free operators:
   * ``cross_matvec``        <-> ``cross_matrix_static_multiply`` (`simulation.cu:528-549`)
   * ``anisotropy_matvec``   <-> ``anisotrophy_matrix_multiply`` (`simulation.cu:551-578`)
 
 Both are expressed over BC-padded inputs supplied by a ``Topology`` so the
-identical code runs single-chip (ghost-cell pad) and sharded (ICI halo
+identical code runs on one device (ghost-cell pad) and sharded (halo
 exchange per CG iteration).
 """
 from __future__ import annotations

@@ -3,7 +3,7 @@
 The reference is strictly single-GPU ("We will expand this to be more
 involved when multi-gpu setups are supported", `cuda_device.cuh:5`).  This
 module is the genuinely new capability: spatial domain decomposition of the
-grid over a 1D/2D TPU mesh (rows / rows x cols), with an optional leading
+grid over a 1D/2D device mesh (rows / rows x cols), with an optional leading
 ensemble axis (pure data parallelism over independent simulations).
 """
 from __future__ import annotations
@@ -22,7 +22,11 @@ def make_mesh(shards_y: int = 1, shards_x: int = 1, batch: int = 1,
     """Build a mesh with axes (batch?, y?, x?) and the matching Topology.
 
     Axes of size 1 are omitted so the common cases stay simple:
-    ``make_mesh(shards_y=8)`` -> 1D row decomposition over 8 chips.
+    ``make_mesh(shards_y=8)`` -> 1D row decomposition over 8 devices.
+
+    Devices are taken in ``jax.devices()`` order: on NVLink every card
+    reaches every other at the same rate, so the mesh follows the
+    algorithm alone.
     """
     devices = list(devices if devices is not None else jax.devices())
     need = shards_y * shards_x * batch

@@ -1,17 +1,16 @@
 """Multi-host (multi-process) execution hooks.
 
-SURVEY §5's "distributed communication backend" line: JAX collectives over
-ICI within a host and DCN across hosts -- no external comm library (the
+SURVEY §5's "distributed communication backend" line: JAX collectives
+(NCCL on GPUs) within and across hosts -- no hand-rolled comm library (the
 reference has none at all, `cuda_device.cuh:5`).
 
-On a multi-host TPU pod slice every process runs the same program;
+In a multi-process run every process runs the same program;
 ``initialize()`` wires the processes together, after which ``jax.devices()``
 is the global device set and the existing mesh/shard_map machinery
-(`parallel/mesh.py`, `parallel/sharded.py`) works unchanged -- halo
-exchanges between shards on different hosts simply ride DCN.  Keep the
+(`parallel/mesh.py`, `parallel/sharded.py`) works unchanged.  Keep the
 mesh's y-axis innermost over a host's local devices (the default enumeration
-order) so the frequent stencil halos stay on ICI and only the shard-boundary
-rows at host seams cross DCN.
+order) so the frequent stencil halos stay inside a host and only the
+shard-boundary rows at host seams cross the network.
 
 Single-process runs are a no-op, so the same entry points work everywhere.
 """
@@ -31,7 +30,7 @@ def initialize(coordinator_address: Optional[str] = None,
                process_id: Optional[int] = None) -> bool:
     """Initialize multi-process JAX if requested/configured.
 
-    With no arguments, relies on the TPU pod environment (autodetection);
+    With no arguments, relies on the cluster environment (autodetection);
     returns False (no-op) when running single-process.
     """
     # must not touch the backend before jax.distributed.initialize (even

@@ -5,7 +5,7 @@ reductions -> collectives), so distribution is just wrapping the stepper in
 ``jax.shard_map`` over the mesh.  Per step this costs:
 
   * explicit solvers: 2 ppermute halo exchanges per RHS stage (one per
-    field) riding ICI, plus pmax collectives for the adaptive error norms;
+    field), plus pmax collectives for the adaptive error norms;
   * CG: one halo exchange per matvec + 2 psum dot products per iteration,
     all inside the jitted while_loop -- no host round-trips (the whole
     performance game per SURVEY §7).

@@ -1,15 +1,15 @@
 """Topology: where am I running and how do I pad / reduce.
 
-This is the multi-chip seam of the framework.  Every solver is written once
+This is the multi-device seam of the framework.  Every solver is written once
 against this interface; the same code runs:
 
-  * single chip  -> ``Topology()``: pads are plain jnp.pad-based ghost cells,
+  * one device  -> ``Topology()``: pads are plain jnp.pad-based ghost cells,
     reductions are plain jnp reductions;
   * inside ``shard_map`` over a device mesh -> ``Topology(axis_y=..., axis_x=...)``:
-    pads become ICI neighbor halo exchanges (``lax.ppermute``) and reductions
+    pads become neighbor halo exchanges (``lax.ppermute``) and reductions
     become ``psum`` / ``pmax`` collectives.
 
-This replaces, at chip granularity, what the reference does at threadblock
+This replaces, at device granularity, what the reference does at threadblock
 granularity with shared-memory halo tiles (`cuda_for.cuh:219-339`) and what
 its CPU CG prototype does with zero-padded vectors (`cojugate_gradient.c:296-308`).
 The reference has no multi-device story at all (`cuda_device.cuh:5`).
@@ -29,13 +29,13 @@ from ..core.params import BoundaryType
 
 def _halo_pad_1d(A: jnp.ndarray, bc: BoundaryType, axis: int, axis_name: str,
                  dirichlet_value=0.0) -> jnp.ndarray:
-    """Pad one *sharded* axis by exchanging single-row/column halos over ICI.
+    """Pad one *sharded* axis by exchanging single-row/column halos.
 
     Every shard sends its boundary slab to both neighbors with two
     ``ppermute``s (ring order).  For periodic BCs the wrap-around transfer is
     already the correct global boundary; for Neumann/Dirichlet the first/last
     shard overwrites the received ghost slab with the local BC rule
-    (clamp / mirror), exactly matching the single-chip pad semantics.
+    (clamp / mirror), exactly matching the single-device pad semantics.
     """
     n = lax.axis_size(axis_name)
     idx = lax.axis_index(axis_name)
@@ -119,7 +119,10 @@ class Topology:
         return self._all(jnp.min(A), lax.pmin)
 
     def dot(self, A, B) -> jnp.ndarray:
-        return self._all(jnp.vdot(A, B), lax.psum)
+        # an elementwise product + sum, never a dot_general: a float32
+        # dot_general may run in TF32 on the GPU, which would break the
+        # scaled 5e-9 CG stopping test
+        return self._all(jnp.sum(A * B), lax.psum)
 
     def count(self, A) -> jnp.ndarray:
         n = jnp.asarray(A.size, jnp.float32)

@@ -138,7 +138,7 @@ def plot_reduction_bandwidth(results: Sequence[dict], save: Optional[str] = None
     plt = _plt()
     fig, ax = plt.subplots(figsize=(7, 4.5))
     ns = [r["n"] for r in results]
-    for key in ("max_gbps", "fused_stats_gbps", "pallas_stats_gbps"):
+    for key in ("max_gbps", "fused_stats_gbps"):
         if key in results[0]:
             ax.plot(ns, [r[key] for r in results], "o-", label=key)
     ax.set_xscale("log")
@@ -160,7 +160,7 @@ def plot_runtime_scaling(runtimes: Dict[str, Dict[int, float]],
     fig, ax = plt.subplots(figsize=(7.5, 5))
     for solver, table in runtimes.items():
         ns = sorted(table)
-        ax.plot(ns, [table[n] for n in ns], "o-", label=f"tpu {solver}")
+        ax.plot(ns, [table[n] for n in ns], "o-", label=solver)
     for solver, table in (reference or {}).items():
         ns = sorted(table)
         ax.plot(ns, [table[n] for n in ns], "s--", alpha=0.6,

@@ -63,7 +63,7 @@ def make_stepper(p: SimParams, topo: Topology = Topology()) -> Stepper:
 
         # Fixed-dt solvers recompute t = iter*dt instead of accumulating so
         # the time stays exact to 1 ulp over arbitrarily many steps (the
-        # reference accumulates in host f64, `main.cpp:553`; on TPU the carry
+        # reference accumulates in host f64, `main.cpp:553`; here the carry
         # is f32, where naive accumulation would drift).
         if p.solver == SolverType.EXPLICIT_RK4_ADAPTIVE:
             t_next = state.t + dt_used.astype(state.t.dtype)

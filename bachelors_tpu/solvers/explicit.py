@@ -1,15 +1,13 @@
 """Explicit integrators: Euler, classic RK4, adaptive Runge-Kutta-Merson.
 
-TPU-native re-designs of `simulation.cu:283-497`.  Each RK stage is one
-fused RHS evaluation at a blended state (see `ops/rhs.py`).  The adaptive
+Re-designs of `simulation.cu:283-497`.  Each RK stage is one RHS
+evaluation at a blended state (see `ops/rhs.py`).  The adaptive
 RKM retry loop runs entirely on device as a ``lax.while_loop`` carrying the
 step size tau -- the reference's per-iteration device->host error-norm
 readbacks (`simulation.cu:427-435`) become on-device Lmax reductions
 (pmax collectives when sharded).
 """
 from __future__ import annotations
-
-from typing import Tuple
 
 import jax.numpy as jnp
 from jax import lax
@@ -25,288 +23,18 @@ def euler_step_based(F, U, U_base, p: SimParams, topo: Topology, fu=0.0,
     (`simulation.cu:283-311`): RHS is evaluated at (F, U) but the
     temperature update integrates from U_base."""
     if same_base:
-        if F.dtype == jnp.float64:
-            from ..ops.pallas_dd import (euler_steps_dd,
-                                         euler_steps_dd_pair_sharded,
-                                         pair_to_state, state_to_pair,
-                                         wants_dd, wants_dd_sharded)
-
-            if wants_dd(p, topo):
-                # fused df64 step: f64-grade precision without XLA's
-                # per-op f64 software emulation (ops/pallas_dd.py)
-                return euler_steps_dd(F, U, p, T=1, fu=fu)
-            if wants_dd_sharded(p, topo, F.shape[0], F.shape[1]):
-                out = euler_steps_dd_pair_sharded(
-                    state_to_pair(F, U), p, topo.axis_y, T=1, fu=fu,
-                    axis_x=topo.axis_x)
-                return pair_to_state(out)
         return euler_eval([(F, U)], [1.0], p, topo, fu)
-    if F.dtype == jnp.float64:
-        from ..ops import df64 as dd
-        from ..ops.pallas_dd import (euler_steps_dd_pair,
-                                     euler_steps_dd_pair_sharded,
-                                     state_to_pair, wants_dd,
-                                     wants_dd_sharded)
-
-        use_dd = wants_dd(p, topo)
-        use_dd_sh = (not use_dd
-                     and wants_dd_sharded(p, topo, F.shape[0], F.shape[1]))
-        if use_dd or use_dd_sh:
-            # corrector re-step (`simulation.cu:928-1008`): RHS at (F, U)
-            # but U integrates from the frozen U_base.  Run the fused pair
-            # step (out_U = U + dt*kU) and rebase exactly:
-            # next_U = U_base + (out_U - U) -- all TwoSum-family add/sub
-            # EFTs, safe against FMA contraction on every backend; the
-            # rebase reproduces U_base + dt*kU to the ~2^-48 pair
-            # precision of out_U itself
-            pair = state_to_pair(F, U)
-            if use_dd:
-                out = euler_steps_dd_pair(pair, p, T=1, fu=fu)
-            else:
-                out = euler_steps_dd_pair_sharded(pair, p, topo.axis_y,
-                                                  T=1, fu=fu,
-                                                  axis_x=topo.axis_x)
-            du = dd.sub((out[2], out[3]), (pair[2], pair[3]))
-            nU = dd.add(dd.from_f64(U_base), du)
-            return dd.to_f64((out[0], out[1])), dd.to_f64(nU)
     dF, dU = eval_rhs([(F, U)], [1.0], p, topo, fu)
     return F + p.dt * dF, U_base + p.dt * dU
 
 
-EULER_BLOCK_STEPS = 4  # fused steps per HBM pass; measured optimum on TPU
-
-# Whole-integrator fusion engages above these cell counts (measured
-# crossovers on the bench TPU; see RESULTS.md "whole-integrator fusion").
-# RKM: the fused attempt wins at EVERY size -- at small grids the staged
-# path is dominated by the per-iteration kernel dispatches + error-norm
-# reductions inside the retry while_loop (128^2: 0.052 staged vs 0.0063
-# fused ms/step; 512^2: 0.077 vs 0.034; 2048^2: 0.541 vs 0.517).
-# RK4 has no such loop: its staged path is equal-or-faster while the
-# working set stays cache-resident, so fusion starts at 8M cells.
-RKM_FULLSTEP_MIN_CELLS = 0
-RK4_FULLSTEP_MIN_CELLS = 8 * 1024 * 1024
-
-
-def make_euler_pair_stepper(p: SimParams, topo: Topology, mesh=None):
-    """state -> (state advanced by EULER_BLOCK_STEPS Euler steps in ONE
-    fused HBM pass; temporal blocking), or ``None`` when inapplicable.
-    The paired function exposes ``.block_steps`` for the loop math.
-
-    Bit-identical to two single steps (tests/test_pallas.py); used by
-    ``solvers.run.advance_n`` and the driver's no-stats fast path.  Gated
-    off for: non-Euler solvers, exact-solution forcing (fu is
-    time-dependent), stats/step-residual collection (pairs emit none), the
-    corrector loop, and configs the fused kernel does not tile.  On
-    y-sharded meshes (pass ``mesh``) the ghost-slab variant engages -- one
-    8-row slab exchange per T steps (df64 additionally covers x/2D meshes
-    via ghost columns); f32 x-sharded and ensemble topologies fall back
-    to single steps.
-    """
-    from ..core.params import SolverType
-
-    if p.solver != SolverType.EXPLICIT_EULER:
-        return None
-    if p.do_exact or p.do_stats or p.do_stats_step_residual:
-        return None
-    if p.do_corrector_loop and p.corrector_max_iters > 0:
-        return None
-
-    if p.dtype == "float64":
-        # df64 fused multi-step Euler: the f64<->pair conversions amortize
-        # over the blocking depth per HBM pass; depth 8 in the HBM regime,
-        # 4 when cache-resident (ops/pallas_dd.euler_dd_block_steps)
-        from ..ops.pallas_dd import (euler_dd_block_steps,
-                                     euler_steps_dd,
-                                     euler_steps_dd_pair_sharded,
-                                     pair_to_state, state_to_pair, wants_dd,
-                                     wants_dd_sharded)
-
-        if topo.is_sharded:
-            if mesh is None or topo.axis_batch:
-                return None
-            n_y = int(mesh.shape[topo.axis_y]) if topo.axis_y else 1
-            n_x = int(mesh.shape[topo.axis_x]) if topo.axis_x else 1
-            ny_local = p.ny // n_y
-            nx_local = p.nx // n_x
-            if not wants_dd_sharded(p, topo, ny_local, nx_local):
-                return None
-            # per-shard working set decides the cache/HBM regime
-            Tdd = euler_dd_block_steps(ny_local * nx_local)
-            import jax
-
-            from ..parallel.sharded import _state_specs
-
-            def pair_inner(state):
-                out = euler_steps_dd_pair_sharded(
-                    state_to_pair(state.F, state.U), p, topo.axis_y, T=Tdd,
-                    axis_x=topo.axis_x)
-                F2, U2 = pair_to_state(out)
-                t_next = (state.iter.astype(state.t.dtype) + Tdd) * \
-                    jnp.asarray(p.dt, state.t.dtype)
-                return state.replace(F=F2, U=U2, t=t_next,
-                                     iter=state.iter + Tdd)
-
-            specs = _state_specs(topo)
-            shmapped = jax.shard_map(pair_inner, mesh=mesh, in_specs=(specs,),
-                                     out_specs=specs, check_vma=False)
-
-            def pair_dd_sh(state):
-                return shmapped(state)
-
-            pair_dd_sh.block_steps = Tdd
-            return pair_dd_sh
-        if not wants_dd(p, topo):
-            return None
-        # single-chip: the GLOBAL cell count is the working set
-        Tdd = euler_dd_block_steps(p.N)
-
-        def pair_dd(state):
-            F2, U2 = euler_steps_dd(state.F, state.U, p, T=Tdd)
-            t_next = (state.iter.astype(state.t.dtype) + Tdd) * jnp.asarray(
-                p.dt, state.t.dtype)
-            return state.replace(F=F2, U=U2, t=t_next, iter=state.iter + Tdd)
-
-        pair_dd.block_steps = Tdd
-        return pair_dd
-
-    from ..ops.rhs import _resolve_backend
-
-    T = EULER_BLOCK_STEPS
-
-    if topo.is_sharded:
-        if mesh is None or topo.axis_x is not None or topo.axis_batch:
-            return None
-        from ..ops.pallas_rhs import (euler2_pallas_sharded,
-                                      supports_euler2_sharded)
-        from ..parallel.sharded import _state_specs
-
-        n_y = int(mesh.shape[topo.axis_y])
-        ny_local = p.ny // n_y
-        try:
-            backend = _resolve_backend(p, topo, 1, ny_local=ny_local,
-                                       nx_local=p.nx)
-        except ValueError:
-            return None
-        if backend != "pallas_sharded":
-            return None
-        if not supports_euler2_sharded(p, ny_local, p.nx):
-            return None
-        local_cells = ny_local * p.nx
-        if 2 * 1024 * 1024 < local_cells < 10 * 1024 * 1024:
-            return None  # per-chip cache window, see below
-
-        import jax
-
-        def pair_inner(state):
-            F2, U2 = euler2_pallas_sharded(state.F, state.U, p, topo.axis_y,
-                                           T=T)
-            t_next = (state.iter.astype(state.t.dtype) + T) * jnp.asarray(
-                p.dt, state.t.dtype)
-            return state.replace(F=F2, U=U2, t=t_next, iter=state.iter + T)
-
-        specs = _state_specs(topo)
-        shmapped = jax.shard_map(pair_inner, mesh=mesh, in_specs=(specs,),
-                                 out_specs=specs, check_vma=False)
-
-        def pair(state):
-            return shmapped(state)
-
-        pair.block_steps = T
-        return pair
-
-    from ..ops.pallas_rhs import euler2_pallas, supports_euler2
-
-    try:
-        if _resolve_backend(p, topo, 1, ny_local=p.ny) != "pallas":
-            return None
-    except ValueError:
-        return None
-    if not supports_euler2(p):
-        return None
-    if 2 * 1024 * 1024 < p.N < 10 * 1024 * 1024:
-        # measured crossover window (~2048^2): the whole working set fits
-        # the on-chip cache there, so Euler is VPU-bound and temporal
-        # blocking only adds halo recompute (single 0.069 vs pair 0.082
-        # ms/step); above it the pair path wins ~2x (RESULTS.md)
-        return None
-
-    def pair(state):
-        F2, U2 = euler2_pallas(state.F, state.U, p, T=T)
-        t_next = (state.iter.astype(state.t.dtype) + T) * jnp.asarray(p.dt, state.t.dtype)
-        return state.replace(F=F2, U=U2, t=t_next, iter=state.iter + T)
-
-    pair.block_steps = T
-    return pair
-
-
 def rk4_step(F, U, p: SimParams, topo: Topology, fu=0.0):
-    """Classic fixed-step RK4 (`simulation.cu:313-348`).
-
-    On the fused-kernel backend the 4th stage and the final combination run
-    as one pass (k4 never materializes in HBM).
-    """
-    from ..ops.rhs import _resolve_backend
-
-    if F.dtype == jnp.float64:
-        from ..ops.pallas_dd import (pair_to_state, rk4_full_dd,
-                                     rk4_full_dd_pair_sharded, state_to_pair,
-                                     wants_dd, wants_dd_sharded)
-
-        if wants_dd(p, topo):
-            # whole-step df64 fusion: k1..k4 + combination in one HBM
-            # pass at ~2^-48 precision (ops/pallas_dd.py)
-            return rk4_full_dd(F, U, p, fu)
-        if wants_dd_sharded(p, topo, F.shape[0], F.shape[1]):
-            # ghost-slab/column df64 whole step: one exchange per field
-            # per sharded axis
-            out = rk4_full_dd_pair_sharded(state_to_pair(F, U), p,
-                                           topo.axis_y, fu,
-                                           axis_x=topo.axis_x)
-            return pair_to_state(out)
-
-    backend_full = _resolve_backend(p, topo, 4, ny_local=F.shape[0],
-                                    nx_local=F.shape[1])
-    local_cells = F.shape[0] * F.shape[1]
-    if backend_full == "pallas" and p.N >= RK4_FULLSTEP_MIN_CELLS:
-        # whole-step fusion: k1..k4 + combination in ONE HBM pass (the
-        # staged path moves ~4 arrays per stage).  Pays only once the
-        # working set leaves the on-chip cache (measured: 4096^2 1.47 vs
-        # 3.07 ms/step; at <=2048^2 the staged kernels are VPU-bound and
-        # equal or faster -- RESULTS.md)
-        from ..ops.pallas_rhs import rk4_full_pallas, supports_fullstep
-
-        if supports_fullstep(p):
-            return rk4_full_pallas(F, U, p, fu)
-    if (backend_full == "pallas_sharded" and topo.axis_x is None
-            and local_cells >= RK4_FULLSTEP_MIN_CELLS):
-        # sharded twin (same per-chip cache crossover, judged on the LOCAL
-        # working set): one 8-row ghost-slab exchange per step instead of
-        # one ppermute pair per field per stage
-        from ..ops.pallas_rhs import (rk4_full_pallas_sharded,
-                                      supports_fullstep_sharded)
-
-        if supports_fullstep_sharded(p, F.shape[0], F.shape[1]):
-            return rk4_full_pallas_sharded(F, U, p, topo.axis_y, fu)
-
+    """Classic fixed-step RK4 (`simulation.cu:313-348`)."""
     dt = p.dt
     one = 1.0
     k1 = eval_rhs([(F, U)], [one], p, topo, fu)
     k2 = eval_rhs([(F, U), k1], [one, dt / 2], p, topo, fu)
     k3 = eval_rhs([(F, U), k2], [one, dt / 2], p, topo, fu)
-    # the rk4_combine kernel holds 2 blend states + 4 extra center blocks =
-    # the VMEM footprint of 4 state-pairs; gate capacity accordingly
-    backend = _resolve_backend(p, topo, 4, ny_local=F.shape[0],
-                               nx_local=F.shape[1])
-    if backend == "pallas":
-        from ..ops.pallas_rhs import rk4_final_stage_pallas
-
-        return rk4_final_stage_pallas((F, U), k1, k2, k3, p, fu)
-    if backend == "pallas_sharded":
-        from ..ops.pallas_rhs import rk4_final_stage_pallas_sharded
-
-        return rk4_final_stage_pallas_sharded((F, U), k1, k2, k3, p,
-                                              topo.axis_y, fu,
-                                              axis_x=topo.axis_x)
     k4 = eval_rhs([(F, U), k3], [one, dt], p, topo, fu)
     next_F = F + dt / 6 * (k1[0] + 2 * k2[0] + 2 * k3[0] + k4[0])
     next_U = U + dt / 6 * (k1[1] + 2 * k2[1] + 2 * k3[1] + k4[1])
@@ -338,8 +66,6 @@ def rkm_adaptive_step(F, U, tau0, p: SimParams, topo: Topology, fu=0.0):
     The final update is the 5th-order combination
     x + used_tau/6 (k1 + 4 k4 + k5) (`simulation.cu:470-482`).
     """
-    from ..ops.rhs import _resolve_backend
-
     dtype = F.dtype
     one = 1.0
     max_iters = max(max(p.T_max_iters, p.Phi_max_iters), 1)
@@ -347,136 +73,28 @@ def rkm_adaptive_step(F, U, tau0, p: SimParams, topo: Topology, fu=0.0):
     delta = jnp.asarray(max(min(p.Phi_tolerance, p.T_tolerance), 1e-20), dtype)
     tol_F = jnp.asarray(p.Phi_tolerance, dtype)
     tol_U = jnp.asarray(p.T_tolerance, dtype)
-    dd_pair0 = None
-    dd_sharded = False
-    dd_slabs = dd_flags = dd_gcols = None
-    if F.dtype == jnp.float64:
-        from ..ops.pallas_dd import (_dd_ghosts, state_to_pair, wants_dd,
-                                     wants_dd_sharded)
 
-        if wants_dd(p, topo):
-            # df64 whole-attempt fusion: the f64 state is split into f32
-            # (hi, lo) pairs ONCE per step (x is loop-invariant across
-            # retries); each attempt is one fused kernel pass and the
-            # winning candidate is joined back to f64 after the loop.
-            dd_pair0 = state_to_pair(F, U)
-        elif wants_dd_sharded(p, topo, F.shape[0], F.shape[1]):
-            # sharded twin: the pair AND its ghost slabs/columns are
-            # tau-invariant, so the ICI collectives hoist out of the retry
-            # while_loop (same discipline as the f32 full_sharded path)
-            dd_pair0 = state_to_pair(F, U)
-            dd_sharded = True
-            dd_slabs, dd_gcols, dd_flags = _dd_ghosts(
-                dd_pair0, topo.axis_y, topo.axis_x)
-
-    backend = ("xla" if dd_pair0 is not None else
-               _resolve_backend(p, topo, 4, ny_local=F.shape[0],
-                                nx_local=F.shape[1]))
-    fused = backend in ("pallas", "pallas_sharded")
-    full = False
-    full_sharded = False
-    if backend == "pallas" and p.N >= RKM_FULLSTEP_MIN_CELLS:
-        # whole-attempt fusion pays at every size (see the gate constants'
-        # comment; measured 1024^2 127 vs 166 us, 2048^2 0.51 vs 0.54,
-        # 4096^2 2.43 vs 5.27, and 2-8x at <=512^2 where the staged path
-        # is dispatch/reduction-bound inside the retry while_loop)
-        from ..ops.pallas_rhs import supports_fullstep
-
-        full = supports_fullstep(p)
-    elif backend == "pallas_sharded" and topo.axis_x is None:
-        # sharded whole-attempt fusion: one 8-row ghost-slab exchange per
-        # attempt (vs one ppermute pair per field per stage) + the same
-        # in-VMEM stage chain per shard
-        from ..ops.pallas_rhs import supports_fullstep_sharded
-
-        full_sharded = supports_fullstep_sharded(p, F.shape[0], F.shape[1])
-        full = full_sharded
-
-    if not full and dd_pair0 is None:
-        # k1 does not depend on tau: computed once outside the retry loop
-        # (`simulation.cu:386`).  The whole-attempt fused kernel recomputes
-        # it in VMEM instead (identical values; retries are rare at settled
-        # tau and the recompute costs less than materializing k1 in HBM).
-        k1_F, k1_U = eval_rhs([(F, U)], [one], p, topo, fu)
-    if full_sharded:
-        # the ghost slabs and edge flags are tau-invariant: hoist the 4 ICI
-        # collectives out of the retry while_loop (the analog of the staged
-        # path's k1 hoist above)
-        from ..ops.pallas_rhs import _edge_flags, _ghost_slabs
-
-        slabs = _ghost_slabs(F, U, topo.axis_y)
-        flags = _edge_flags(topo.axis_y)
+    # k1 does not depend on tau: computed once outside the retry loop
+    # (`simulation.cu:386`)
+    k1_F, k1_U = eval_rhs([(F, U)], [one], p, topo, fu)
 
     def stage(tau):
-        """One tau attempt: candidate next state + error norms.
-
-        Whole-attempt fusion (single-chip pallas): k1..k5, the 5th-order
-        update and the error partial-maxima all happen in ONE kernel pass
-        (no k ever hits HBM).  Sharded pallas: one fused kernel per stage +
-        the fused final stage.  XLA oracle path: materialize k5 and reduce
-        separately (still on-device, unlike the reference's per-iteration
-        host readback, `simulation.cu:427-435`).
+        """One tau attempt: candidate next state + error norms.  The
+        reductions stay on device (pmax when sharded), unlike the
+        reference's per-iteration host readback (`simulation.cu:427-435`).
         """
-        if dd_pair0 is not None:
-            from ..ops.pallas_dd import (rkm_attempt_dd_pair,
-                                         rkm_attempt_dd_pair_sharded)
-
-            if dd_sharded:
-                cand, emax_F, emax_U = rkm_attempt_dd_pair_sharded(
-                    dd_pair0, tau, p, topo.axis_y, fu,
-                    slabs=dd_slabs, flags=dd_flags, gcols=dd_gcols,
-                    axis_x=topo.axis_x)
-                emax_F = topo.allmax(emax_F)
-                emax_U = topo.allmax(emax_U)
-            else:
-                cand, emax_F, emax_U = rkm_attempt_dd_pair(dd_pair0, tau, p,
-                                                           fu)
-            return (cand, tau / 3 * emax_F.astype(dtype),
-                    tau / 3 * emax_U.astype(dtype))
-        if full_sharded:
-            from ..ops.pallas_rhs import rkm_attempt_pallas_sharded
-
-            nF, nU, emax_F, emax_U = rkm_attempt_pallas_sharded(
-                F, U, tau, p, topo.axis_y, fu, slabs=slabs, flags=flags)
-            emax_F = topo.allmax(emax_F)
-            emax_U = topo.allmax(emax_U)
-            return (nF, nU), tau / 3 * emax_F, tau / 3 * emax_U
-        if full:
-            from ..ops.pallas_rhs import rkm_attempt_pallas
-
-            nF, nU, emax_F, emax_U = rkm_attempt_pallas(F, U, tau, p, fu)
-            return (nF, nU), tau / 3 * emax_F, tau / 3 * emax_U
-        k2 = eval_rhs([(F, U), (k1_F, k1_U)], [one, tau / 3], p, topo, fu)
-        k3 = eval_rhs([(F, U), (k1_F, k1_U), k2], [one, tau / 6, tau / 6], p, topo, fu)
-        k4 = eval_rhs([(F, U), (k1_F, k1_U), k3], [one, tau / 8, 3 * tau / 8], p, topo, fu)
-        if fused:
-            if backend == "pallas_sharded":
-                from ..ops.pallas_rhs import rkm_final_stage_pallas_sharded
-
-                nF, nU, emax_F, emax_U = rkm_final_stage_pallas_sharded(
-                    (F, U), (k1_F, k1_U), k3, k4, tau, p, topo.axis_y, fu,
-                    axis_x=topo.axis_x)
-                emax_F = topo.allmax(emax_F)
-                emax_U = topo.allmax(emax_U)
-            else:
-                from ..ops.pallas_rhs import rkm_final_stage_pallas
-
-                nF, nU, emax_F, emax_U = rkm_final_stage_pallas(
-                    (F, U), (k1_F, k1_U), k3, k4, tau, p, fu)
-            eps_F = tau / 3 * emax_F
-            eps_U = tau / 3 * emax_U
-        else:
-            k5 = eval_rhs(
-                [(F, U), (k1_F, k1_U), k3, k4],
-                [one, tau / 2, -3 * tau / 2, 2 * tau],
-                p, topo, fu,
-            )
-            eps_F = tau / 3 * topo.max(jnp.abs(
-                0.2 * k1_F - 0.9 * k3[0] + 0.8 * k4[0] - 0.1 * k5[0]))
-            eps_U = tau / 3 * topo.max(jnp.abs(
-                0.2 * k1_U - 0.9 * k3[1] + 0.8 * k4[1] - 0.1 * k5[1]))
-            nF = F + tau / 6 * (k1_F + 4 * k4[0] + k5[0])
-            nU = U + tau / 6 * (k1_U + 4 * k4[1] + k5[1])
+        k1 = (k1_F, k1_U)
+        k2 = eval_rhs([(F, U), k1], [one, tau / 3], p, topo, fu)
+        k3 = eval_rhs([(F, U), k1, k2], [one, tau / 6, tau / 6], p, topo, fu)
+        k4 = eval_rhs([(F, U), k1, k3], [one, tau / 8, 3 * tau / 8], p, topo, fu)
+        k5 = eval_rhs([(F, U), k1, k3, k4],
+                      [one, tau / 2, -3 * tau / 2, 2 * tau], p, topo, fu)
+        eps_F = tau / 3 * topo.max(jnp.abs(
+            0.2 * k1_F - 0.9 * k3[0] + 0.8 * k4[0] - 0.1 * k5[0]))
+        eps_U = tau / 3 * topo.max(jnp.abs(
+            0.2 * k1_U - 0.9 * k3[1] + 0.8 * k4[1] - 0.1 * k5[1]))
+        nF = F + tau / 6 * (k1_F + 4 * k4[0] + k5[0])
+        nU = U + tau / 6 * (k1_U + 4 * k4[1] + k5[1])
         return (nF, nU), eps_F, eps_U
 
     def body(carry):
@@ -499,23 +117,11 @@ def rkm_adaptive_step(F, U, tau0, p: SimParams, topo: Topology, fu=0.0):
         i, *_rest, stop = carry
         return jnp.logical_and(i < max_iters, jnp.logical_not(stop))
 
-    # the candidate-state slot of the carry is a pytree: (nF, nU) on the
-    # f64/XLA and f32 paths, the (Fh, Fl, Uh, Ul) f32 pair set on the df64
-    # path (joined back to f64 below)
-    if dd_pair0 is not None:
-        cand0 = tuple(jnp.zeros_like(c) for c in dd_pair0)
-    else:
-        cand0 = (jnp.zeros_like(F), jnp.zeros_like(U))
     init = (jnp.zeros((), jnp.int32), jnp.asarray(tau0, dtype),
-            jnp.asarray(tau0, dtype), cand0,
+            jnp.asarray(tau0, dtype), (jnp.zeros_like(F), jnp.zeros_like(U)),
             jnp.zeros((), bool), jnp.zeros((), dtype), jnp.zeros((), dtype),
             jnp.zeros((), bool))
     (iters, next_tau, used_tau, cand, converged, eps_F, eps_U, _s) = (
         lax.while_loop(cond, body, init))
-    if dd_pair0 is not None:
-        from ..ops.pallas_dd import pair_to_state
-
-        next_F, next_U = pair_to_state(cand)
-    else:
-        next_F, next_U = cand
+    next_F, next_U = cand
     return next_F, next_U, used_tau, next_tau, iters, converged

@@ -1,8 +1,8 @@
 """Multi-step runners: keep the hot loop on device.
 
 The reference drives every step from the host with a device sync per step
-(`main.cpp:499-559`, `simulation.cu:1153`).  On TPU that per-step dispatch
-would dominate at small grids, so the driver advances in jitted chunks:
+(`main.cpp:499-559`, `simulation.cu:1153`).  That per-step dispatch would
+dominate at small grids, so the driver advances in jitted chunks:
 
   * ``advance_until``: lax.while_loop until sim time reaches a target
     (works for fixed and adaptive dt) -- the benchmark fast path with zero
@@ -79,8 +79,7 @@ def advance_until_members(stepper: Stepper, state: SimState, t_stop,
     return lax.while_loop(cond, body, state)
 
 
-def advance_n(stepper: Stepper, state: SimState, n_steps,
-              pair_stepper=None) -> SimState:
+def advance_n(stepper: Stepper, state: SimState, n_steps) -> SimState:
     """Run exactly n_steps (host-determined) with a device-side loop.
 
     The fixed-dt fast path: the step count for a time interval is exact in
@@ -90,10 +89,6 @@ def advance_n(stepper: Stepper, state: SimState, n_steps,
     static trip count XLA fully unrolls the loop (minutes of compile time
     for thousand-step chunks) and every distinct chunk size recompiles; a
     dynamic bound keeps one rolled while-loop for all chunk sizes.
-
-    ``pair_stepper`` (see ``solvers.explicit.make_euler_pair_stepper``)
-    advances ``pair_stepper.block_steps`` (default 2) steps per fused HBM
-    pass; n//T blocks + n%T singles land on exactly n steps.
     """
 
     def body(_i, s):
@@ -101,10 +96,6 @@ def advance_n(stepper: Stepper, state: SimState, n_steps,
         return s2
 
     n = jnp.asarray(n_steps, jnp.int32)
-    if pair_stepper is not None:
-        T = getattr(pair_stepper, "block_steps", 2)
-        state = lax.fori_loop(0, n // T, lambda _i, s: pair_stepper(s), state)
-        return lax.fori_loop(0, n % T, body, state)
     return lax.fori_loop(0, n, body, state)
 
 

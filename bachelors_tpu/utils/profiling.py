@@ -2,7 +2,7 @@
 
 The analog of the reference's timing machinery (CUDA-event timers
 `simulation.cu:708-729`, wall-clock reports `main.cpp:560-564`) built on
-``jax.profiler``: capture XLA/TPU traces viewable in Perfetto/TensorBoard,
+``jax.profiler``: capture XLA device traces viewable in Perfetto/TensorBoard,
 plus lightweight named step timers for always-on production telemetry.
 """
 from __future__ import annotations

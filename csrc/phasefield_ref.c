@@ -1,4 +1,4 @@
-/* phasefield_ref: independent native CPU oracle for the TPU framework.
+/* phasefield_ref: independent native CPU oracle for the JAX framework.
  *
  * Plays the role the standalone C conjugate-gradient program plays in the
  * reference's test strategy (SURVEY.md #25, `cojugate_gradient.c`): a

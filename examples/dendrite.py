@@ -5,7 +5,7 @@ Usage:
 
 Produces the classic 6-fold dendrite figure (temperature field + phase
 interface overlay), the same experiment the reference's interactive viewer
-shows, end-to-end on TPU.
+shows, end-to-end.
 """
 import argparse
 import os

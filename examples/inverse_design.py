@@ -30,7 +30,7 @@ def main():
 
     p = bt.SimParams(nx=96, ny=96, L0=4.0, dt=5e-6, S=0.25, m0=6.0,
                      solver=bt.SolverType.EXPLICIT_EULER,
-                     dtype="float32", backend="xla")
+                     dtype="float32")
     F0, U_init = bt.make_initial_fields(p, bt.InitialConditions(
         circle_center=(2.0, 2.0), circle_radius=0.4, circle_fade=6.0))
     step = bt.make_stepper(p)

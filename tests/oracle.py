@@ -41,28 +41,43 @@ def f0(p):
 
 def rhs_oracle(F, U, prm, fu=0.0, f32_transcendentals=True):
     """Per-cell RHS evaluation.  ``prm`` is a SimParams-like object."""
-    ny, nx = F.shape
+    return rhs_oracle_blend([(F, U)], [1.0], prm, fu, f32_transcendentals)
+
+
+def rhs_oracle_blend(states, weights, prm, fu=0.0, f32_transcendentals=True,
+                     dirichlet=0.0):
+    """Per-cell RHS at the blend sum_i w_i (F_i, U_i), blending the BC
+    *samples* of each state as the reference does (`simulation.cu:193-197`):
+    a Dirichlet ghost of state i is 2*dirichlet - m_i."""
+    ny, nx = states[0][0].shape
     dx = prm.L0 / nx
     dy = prm.L0 / ny
-    dF = np.zeros_like(F)
-    dU = np.zeros_like(U)
+    F0 = states[0][0]
+    dF = np.zeros_like(F0)
+    dU = np.zeros_like(F0)
     k0f = prm.a / (prm.xi**2 * prm.alpha)
     k2f = prm.b * prm.beta / prm.alpha
     k1f = 1.0 / prm.alpha
     fbc = prm.Phi_boundary.value
     ubc = prm.T_boundary.value
+
+    def sample(field, x, y):
+        bc = fbc if field == 0 else ubc
+        return sum(w * boundary_sample(st[field], x, y, bc, dirichlet)
+                   for st, w in zip(states, weights))
+
     for y in range(ny):
         for x in range(nx):
-            C_F = boundary_sample(F, x, y, fbc)
-            E_F = boundary_sample(F, x + 1, y, fbc)
-            W_F = boundary_sample(F, x - 1, y, fbc)
-            N_F = boundary_sample(F, x, y + 1, fbc)
-            S_F = boundary_sample(F, x, y - 1, fbc)
-            C_U = boundary_sample(U, x, y, ubc)
-            E_U = boundary_sample(U, x + 1, y, ubc)
-            W_U = boundary_sample(U, x - 1, y, ubc)
-            N_U = boundary_sample(U, x, y + 1, ubc)
-            S_U = boundary_sample(U, x, y - 1, ubc)
+            C_F = sample(0, x, y)
+            E_F = sample(0, x + 1, y)
+            W_F = sample(0, x - 1, y)
+            N_F = sample(0, x, y + 1)
+            S_F = sample(0, x, y - 1)
+            C_U = sample(1, x, y)
+            E_U = sample(1, x + 1, y)
+            W_U = sample(1, x - 1, y)
+            N_U = sample(1, x, y + 1)
+            S_U = sample(1, x, y - 1)
 
             gx = (E_F - W_F) / (2 * dx)
             gy = (N_F - S_F) / (2 * dy)

@@ -16,7 +16,7 @@ from bachelors_tpu.core.params import SolverType
 
 
 def params(**kw):
-    d = dict(nx=32, ny=32, L0=4.0, dt=1e-6, dtype="float64", backend="xla",
+    d = dict(nx=32, ny=32, L0=4.0, dt=1e-6, dtype="float64",
              f32_transcendentals=False, solver=SolverType.EXPLICIT_EULER)
     d.update(kw)
     return bt.SimParams(**d)

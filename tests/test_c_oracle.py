@@ -29,7 +29,7 @@ BCS = [BoundaryType.PERIODIC, BoundaryType.NEUMANN, BoundaryType.DIRICHLET]
 def params(bc, **kw):
     base = dict(nx=24, ny=16, L0=4.0, dt=5e-6, S=0.3, m0=6.0, theta0=0.1,
                 T_boundary=bc, Phi_boundary=bc, dtype="float64",
-                f32_transcendentals=False, backend="xla")
+                f32_transcendentals=False)
     base.update(kw)
     return SimParams(**base)
 

@@ -1,5 +1,7 @@
 """Matrix-free CG vs dense oracles (ports the *cases* of the reference's
 standalone CPU CG test program, `cojugate_gradient.c:416-673`)."""
+import shutil
+
 import numpy as np
 import pytest
 
@@ -142,7 +144,61 @@ def test_pcg_constant_diag_is_plain_cg(rng):
                                rtol=1e-6, atol=1e-8)
 
 
-def test_pcg_rejects_fused_combo():
-    with pytest.raises(ValueError, match="mutually exclusive"):
-        cg_solve(lambda v: v, np.ones(4), diag=np.ones(4),
-                 matvec_pAp=lambda v, out=None: (v, 1.0))
+BCS = [BoundaryType.PERIODIC, BoundaryType.NEUMANN, BoundaryType.DIRICHLET]
+
+
+@pytest.mark.skipif(shutil.which("cc") is None, reason="no C compiler")
+@pytest.mark.parametrize("shape", [(6, 10), (17, 23), (100, 36)])
+@pytest.mark.parametrize("bc", BCS)
+def test_cg_matches_c_oracle(bc, shape, rng):
+    """Plain CG on the implicit-heat system == the native C CG, per BC and
+    on grids of any shape."""
+    from bachelors_tpu.utils import coracle
+
+    ny, nx = shape
+    p = SimParams(nx=nx, ny=ny, L0=1.0, dt=1e-3, T_boundary=bc,
+                  dtype="float64")
+    A = CrossMatrix.implicit_heat(p)
+    b = rng.normal(size=shape)
+    # division guards off: both run textbook CG to the tolerance
+    want, c_iters, _ = coracle.cg_cross(b, bc.value, A.C, A.X, A.Y,
+                                        tol=1e-11, max_iters=2000,
+                                        eps=1e-300)
+    got, res = cg_solve(lambda v: cross_matvec(A, v, TOPO), b,
+                        tolerance=1e-11, max_iters=2000, epsilon=1e-300)
+    assert bool(res.converged) and c_iters < 2000
+    np.testing.assert_allclose(np.asarray(got), want, rtol=0,
+                               atol=1e-9 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("bc", BCS)
+def test_pcg_jacobi_anisotropy_system(bc, rng):
+    """Jacobi PCG on the anisotropic phase operator with a per-cell s (the
+    corrector-guess case) solves it like a dense solve, per BC."""
+    p = SimParams(nx=8, ny=6, L0=1.0, dt=2e-3, Phi_boundary=bc,
+                  dtype="float64")
+    A = AnisotropyMatrix.implicit_phase(p)
+    s = np.abs(rng.normal(size=(p.ny, p.nx))) + 0.05
+    mv = lambda v: anisotropy_matvec(A, s, v, TOPO)
+    n = p.nx * p.ny
+    dense = np.stack([np.asarray(mv(e.reshape(p.ny, p.nx))).reshape(-1)
+                      for e in np.eye(n)], axis=1)
+    b = rng.normal(size=(p.ny, p.nx))
+    want = np.linalg.solve(dense, b.reshape(-1)).reshape(p.ny, p.nx)
+    got, res = cg_solve(mv, b, diag=1 + A.Cm1 * s, tolerance=1e-12,
+                        max_iters=500, epsilon=1e-300)
+    assert bool(res.converged)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_topology_dot_is_elementwise_reduction(dtype):
+    """The CG dots are a multiply + reduce, never a dot_general: a float32
+    dot_general may run in TF32 on the GPU."""
+    import jax
+
+    a = np.ones((8, 8), dtype)
+    jaxpr = str(jax.make_jaxpr(Topology().dot)(a, a))
+    assert "dot_general" not in jaxpr
+    assert "reduce_sum" in jaxpr
+    assert float(Topology().dot(a, 2 * a)) == 128.0

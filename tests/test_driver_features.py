@@ -68,7 +68,7 @@ def test_cli_main_skips_bad_config(tmp_path, monkeypatch):
 def test_semi_implicit_corrector_loop():
     """The corrector shell drives the semi-implicit stepper too
     (`simulation.cu:964-978`), with step residuals recorded."""
-    p = bt.SimParams(nx=24, ny=24, dt=1e-5, dtype="float64", backend="xla",
+    p = bt.SimParams(nx=24, ny=24, dt=1e-5, dtype="float64",
                      f32_transcendentals=False,
                      solver=bt.SolverType.SEMI_IMPLICIT,
                      do_corrector_loop=True, corrector_max_iters=2,
@@ -297,22 +297,28 @@ def test_ensemble_benchmark_smoke():
 
 
 def test_default_compile_cache_respects_env(monkeypatch, tmp_path):
+    """With JAX_COMPILATION_CACHE_DIR set nothing is configured in code;
+    without it the cache goes to the fixed path inside the checkout; a
+    directory already configured through jax.config is left alone."""
     import jax
 
-    from bachelors_tpu.app.driver import _default_compile_cache
+    import bachelors_tpu
+    from bachelors_tpu.app.driver import _default_compile_cache, default_cache_dir
 
     prev = jax.config.jax_compilation_cache_dir
     try:
-        # env var set -> no override
         monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
         jax.config.update("jax_compilation_cache_dir", None)
         _default_compile_cache()
         assert jax.config.jax_compilation_cache_dir is None
-        # unset -> a default is installed
+
         monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR")
         _default_compile_cache()
-        assert jax.config.jax_compilation_cache_dir
-        # user-configured value is left alone
+        repo = os.path.dirname(os.path.dirname(
+            os.path.abspath(bachelors_tpu.__file__)))
+        assert jax.config.jax_compilation_cache_dir == default_cache_dir()
+        assert default_cache_dir() == os.path.join(repo, ".jax_cache")
+
         jax.config.update("jax_compilation_cache_dir", str(tmp_path))
         _default_compile_cache()
         assert jax.config.jax_compilation_cache_dir == str(tmp_path)
@@ -327,25 +333,57 @@ def test_builtin_selftests_pass():
     assert run_selftests()
 
 
-def test_advance_n_pair_remainder():
-    """n // T fused blocks + n % T singles must land on exactly n steps."""
-    import jax
-    import jax.numpy as jnp
+def test_compile_cache_dir_is_git_ignored():
+    """The default cache lives in the checkout but is never committed."""
+    from bachelors_tpu.app.driver import default_cache_dir
 
-    from bachelors_tpu.core.state import SimState
-    from bachelors_tpu.solvers.run import advance_n
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    ignored = open(os.path.join(repo, ".gitignore")).read().split()
+    assert os.path.basename(default_cache_dir()) + "/" in ignored
 
-    def single(s):
-        return s.replace(iter=s.iter + 1, t=s.t + 1.0), None
 
-    def pair(s):
-        return s.replace(iter=s.iter + 4, t=s.t + 4.0)
+@pytest.mark.parametrize("visible,want", [
+    (None, ["0", "1", "2", "3"]), ("4,5,6,7", ["4", "5", "6", "7"]),
+    (" 2, 0 ,1,3", ["2", "0", "1", "3"])])
+def test_launcher_gives_each_process_its_own_card(visible, want):
+    from bachelors_tpu.launch import card_assignment
 
-    pair.block_steps = 4
-    st = SimState(F=jnp.zeros((4, 4)), U=jnp.zeros((4, 4)),
-                  t=jnp.float32(0), iter=jnp.int32(0), tau=jnp.float32(0))
-    for n in (0, 1, 4, 6, 11):
-        out = jax.jit(lambda s, k: advance_n(single, s, k,
-                                             pair_stepper=pair))(st, n)
-        assert int(out.iter) == n, (n, int(out.iter))
-        assert float(out.t) == pytest.approx(float(n))
+    assert card_assignment(4, visible) == want
+
+
+def test_launcher_refuses_too_few_cards():
+    from bachelors_tpu.launch import card_assignment
+
+    with pytest.raises(ValueError, match="need 4 cards"):
+        card_assignment(4, "0,1")
+
+
+def test_bench_refuses_a_non_gpu_device():
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    r = subprocess.run([sys.executable, os.path.join(repo, "bench.py")],
+                       cwd=repo, env=env, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode != 0
+    assert "needs a GPU" in r.stderr and '"metric"' not in r.stdout
+
+
+def test_headless_driver_imports_no_plotting(tmp_path):
+    """The driver's headless path needs jax and numpy only: a full run in a
+    fresh process leaves matplotlib unimported."""
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = tmp_path / "c.ini"
+    cfg.write_text(CONFIG_TEXT.replace("times = 2", "times = 1"))
+    code = ("import sys; from bachelors_tpu.app.driver import main; "
+            f"rc = main([{str(cfg)!r}]); "
+            "print('MPL', 'matplotlib' in sys.modules, rc)")
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=repo)
+    r = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert "MPL False 0" in r.stdout, r.stdout + r.stderr

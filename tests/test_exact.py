@@ -112,7 +112,7 @@ class TestFrankDisk:
             T_boundary=BoundaryType.NEUMANN, Phi_boundary=BoundaryType.NEUMANN,
             T_tolerance=1e-12, Phi_tolerance=1e-12,
             T_max_iters=400, Phi_max_iters=5,
-            dtype="float64", f32_transcendentals=False, backend="xla")
+            dtype="float64", f32_transcendentals=False)
 
         r = ex.radius_grid(nx, ny, L0, jnp.float64)
         t0, t1 = 0.05, 0.06

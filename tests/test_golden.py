@@ -40,13 +40,13 @@ def run_case(solver, nsteps, dtype):
     if solver == bt.SolverType.EXPLICIT_RK4_ADAPTIVE:
         # matches the parameters the rkm golden frame was generated with
         p = bt.SimParams(nx=64, ny=64, L0=4.0, dt=5e-6, S=0.3, m0=6.0,
-                         theta0=0.1, solver=solver, dtype=dtype, backend="xla",
+                         theta0=0.1, solver=solver, dtype=dtype,
                          f32_transcendentals=False,
                          Phi_tolerance=1e-7, T_tolerance=1e-7, min_dt=1e-10,
                          Phi_max_iters=10, T_max_iters=10)
     else:
         p = bt.SimParams(nx=64, ny=64, L0=4.0, dt=5e-6, S=0.3, m0=6.0, theta0=0.1,
-                     solver=solver, dtype=dtype, backend="xla",
+                     solver=solver, dtype=dtype,
                      f32_transcendentals=False,
                      Phi_tolerance=1e-10, T_tolerance=1e-10,
                      Phi_max_iters=100, T_max_iters=100)

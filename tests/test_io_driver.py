@@ -484,46 +484,30 @@ def test_shipped_config_ini_runs(tmp_path, monkeypatch):
     assert cfg.params.solver.value == "explicit-rk4-adaptive"
 
 
-def test_f64_x_sharded_engages_dd_quietly(capsys):
-    """Since round 5 the df64 ghost-COLUMN kernels cover x/2D meshes
-    (`ops.pallas_dd.ghost_cols_dd`), so a tiling f64 x-sharded config is
-    no longer a fallback and must parse without warnings; a NON-tiling
-    one still gets the fused-kernel gap warning (per-shard geometry)."""
-    cfg = parse_config(
-        CONFIG_TEXT,
-        ["[simulation]\nmesh_size_x = 512\nmesh_size_y = 256\n",
-         "[tpu]\nbackend = auto\ndtype = float64\nshards_x = 2\n"])
-    assert "fused" not in capsys.readouterr().err
-    assert cfg.shards_x == 2
-    parse_config(CONFIG_TEXT,
-                 ["[simulation]\nmesh_size_x = 512\nmesh_size_y = 256\n",
-                  "[tpu]\nbackend = auto\ndtype = float64\nshards_x = 8\n"])
-    err = capsys.readouterr().err
-    assert "fused" in err and "per shard (64)" in err
+@pytest.mark.parametrize("value", ["auto", "xla", "XLA"])
+def test_backend_key_still_parses(value):
+    """`[tpu] backend` stays a readable key; both values run the XLA path,
+    so they give the same params."""
+    cfg = parse_config(CONFIG_TEXT.replace("backend = xla",
+                                           f"backend = {value}"))
+    assert cfg.params == parse_config(CONFIG_TEXT).params
 
 
-def test_auto_backend_warns_on_non_tiling_config(capsys):
-    """backend=auto on a config the fused kernels cannot tile (nx not a
-    multiple of 128) must warn at parse time naming the constraint --
-    otherwise the run silently rides the XLA path at a fraction of the
-    speed (`ops.rhs._resolve_backend` returns \"xla\" with no signal)."""
-    base = ["[simulation]\nmesh_size_x = 1000\nmesh_size_y = 1000\n",
-            "[tpu]\nbackend = auto\n"]
-    parse_config(CONFIG_TEXT, base)
-    err = capsys.readouterr().err
-    assert "fused" in err and "128" in err and "1000" in err
-    # a tiling config stays quiet...
-    parse_config(CONFIG_TEXT, ["[simulation]\nmesh_size_x = 1024\n"
-                               "mesh_size_y = 1024\n", "[tpu]\nbackend = auto\n"])
-    # ...as does an explicit backend=xla opt-out on the non-tiling one
-    parse_config(CONFIG_TEXT, [base[0], "[tpu]\nbackend = xla\n"])
-    assert "fused" not in capsys.readouterr().err
-    # the constraint is evaluated per SHARD: 1024 wide split over 16
-    # x-shards is 64 columns per shard
-    parse_config(CONFIG_TEXT, ["[simulation]\nmesh_size_x = 1024\n"
-                               "mesh_size_y = 1024\n",
-                               "[tpu]\nbackend = auto\nshards_x = 16\n"])
-    err = capsys.readouterr().err
-    assert "fused" in err and "per shard (64)" in err
+def test_backend_pallas_fails_with_message():
+    with pytest.raises(ConfigError, match="Pallas kernels were removed"):
+        parse_config(CONFIG_TEXT.replace("backend = xla", "backend = pallas"))
 
 
+def test_backend_unknown_value_is_reported():
+    with pytest.raises(ConfigError, match="unknown backend"):
+        parse_config(CONFIG_TEXT.replace("backend = xla", "backend = cuda"))
+
+
+def test_driver_logs_the_device(tmp_path, monkeypatch):
+    """The run log names the platform and device kind it ran on."""
+    monkeypatch.chdir(tmp_path)
+    open("c.ini", "w").write(CONFIG_TEXT.replace("times = 2", "times = 1"))
+    res = run_config_file("c.ini")
+    log = open(os.path.join(res.save_folder, "log.txt")).read()
+    assert "device = cpu" in log
+    assert res.state is not None and res.state.F.shape == (16, 16)

@@ -38,8 +38,7 @@ class TestDendriteGrowth:
     def test_front_advances_into_undercooled_melt(self):
         """Undercooled melt (T < Tm): the solid seed must grow."""
         p = bt.SimParams(nx=96, ny=96, L0=4.0, dt=5e-6, S=0.0,
-                         solver=SolverType.EXPLICIT_EULER, dtype="float64",
-                         backend="xla", f32_transcendentals=False)
+                         solver=SolverType.EXPLICIT_EULER, dtype="float64", f32_transcendentals=False)
         st = grow(p, 400)
         F0, _ = bt.make_initial_fields(p, bt.InitialConditions(
             circle_center=(2.0, 2.0), circle_radius=0.2, circle_fade=4.0))
@@ -59,7 +58,7 @@ class TestDendriteGrowth:
         S0, th0 = 0.35, 0.2
         p = bt.SimParams(nx=256, ny=256, L0=4.0, dt=5e-6, S=S0, m0=6.0,
                          theta0=th0, solver=SolverType.EXPLICIT_EULER,
-                         dtype="float64", backend="xla",
+                         dtype="float64",
                          f32_transcendentals=False)
         F, U = bt.make_initial_fields(p, bt.InitialConditions(
             circle_center=(2.0, 2.0), circle_radius=0.5, circle_fade=10.0))
@@ -84,8 +83,7 @@ class TestDendriteGrowth:
 
     def test_isotropic_stays_circular(self):
         p = bt.SimParams(nx=96, ny=96, L0=4.0, dt=5e-6, S=0.0,
-                         solver=SolverType.EXPLICIT_EULER, dtype="float64",
-                         backend="xla", f32_transcendentals=False)
+                         solver=SolverType.EXPLICIT_EULER, dtype="float64", f32_transcendentals=False)
         st = grow(p, 400, radius=0.25, fade=6.0)
         rad = contour_radii(np.asarray(st.F), p.L0, 180)
         rad = rad[np.isfinite(rad)]

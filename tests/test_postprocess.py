@@ -164,7 +164,7 @@ def test_viewer_render_frame(tmp_path):
     from bachelors_tpu.io.config import SimConfig
     from bachelors_tpu.models.initial import InitialConditions
 
-    p = bt.SimParams(nx=32, ny=32, backend="xla")
+    p = bt.SimParams(nx=32, ny=32)
     cfg = SimConfig(params=p, initial=InitialConditions())
     F, U = bt.make_initial_fields(p, cfg.initial)
     st = bt.make_state(F, U, p)

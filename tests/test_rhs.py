@@ -16,7 +16,7 @@ def params(bc, **kw):
     base = dict(
         nx=12, ny=8, L0=4.0, dt=5e-6, S=0.25, m0=6.0, theta0=0.1,
         T_boundary=bc, Phi_boundary=bc, dtype="float64",
-        f32_transcendentals=False, backend="xla",
+        f32_transcendentals=False,
     )
     base.update(kw)
     return SimParams(**base)
@@ -97,7 +97,7 @@ def test_mixed_boundary_conditions(f_bc, u_bc, rng):
     with its own boundary, `simulation.cu:186-197`)."""
     p = SimParams(nx=12, ny=8, L0=4.0, dt=5e-6, S=0.25, m0=6.0, theta0=0.1,
                   Phi_boundary=f_bc, T_boundary=u_bc, dtype="float64",
-                  f32_transcendentals=False, backend="xla")
+                  f32_transcendentals=False)
     F = rng.normal(size=(p.ny, p.nx))
     U = rng.normal(size=(p.ny, p.nx))
     dF, dU = eval_rhs([(F, U)], [1.0], p, Topology(), fu=0.05)
@@ -110,33 +110,27 @@ def test_mixed_boundary_conditions(f_bc, u_bc, rng):
                                     "explicit-rk4-adaptive", "semi-implicit"])
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("mesh", [128, 256])
-def test_backend_xla_traces_no_pallas(solver, dtype, mesh, monkeypatch):
-    """`backend = xla` must pin EVERY kernel to the XLA path, even on a
-    real TPU: the full stepper's jaxpr may contain no pallas_call.
-
-    Regression for sweep_r3_f64_xla.json's 128^2/256^2 rows, which recorded
-    Mosaic `tpu.dynamic_rotate ... i64` errors inside xla-pinned f64 runs
-    (stale rows from before the x64 roll-shift fixes -- this test makes the
-    gate contract enforceable without hardware by forcing the on-TPU
-    branch of every backend gate)."""
+def test_backend_xla_traces_no_pallas(solver, dtype, mesh):
+    """Every config runs the XLA path: the full stepper's jaxpr may contain
+    no pallas_call, for `[tpu] backend = auto` and `xla` alike (both parse
+    to the same params)."""
     import jax
 
-    from bachelors_tpu.core.params import SimParams
-    from bachelors_tpu.core.state import make_state
-    from bachelors_tpu.ops import rhs as rhs_mod
-    from bachelors_tpu.solvers.base import make_stepper
-    from bachelors_tpu.solvers.explicit import make_euler_pair_stepper
-
     from bachelors_tpu.core.params import SolverType
+    from bachelors_tpu.core.state import make_state
+    from bachelors_tpu.io.config import parse_config
+    from bachelors_tpu.solvers.base import make_stepper
+    from test_io_driver import CONFIG_TEXT
 
-    monkeypatch.setattr(rhs_mod, "_on_tpu_or_forced", lambda p: True)
-    p = SimParams(solver=SolverType(solver), ny=mesh, nx=mesh, dtype=dtype,
-                  backend="xla")
-    topo = Topology()
+    grid = f"[simulation]\nmesh_size_x = {mesh}\nmesh_size_y = {mesh}\n"
+    params = [parse_config(CONFIG_TEXT, [
+        grid, f"[simulation]\nsolver = {solver}\n",
+        f"[tpu]\nbackend = {backend}\ndtype = {dtype}\n"]).params
+        for backend in ("auto", "xla")]
+    assert params[0] == params[1]
+    p = params[0]
+    assert p.solver == SolverType(solver) and p.nx == mesh
     state = make_state(np.zeros((mesh, mesh)), np.zeros((mesh, mesh)), p)
-    step = make_stepper(p, topo)
-    jaxpr = str(jax.make_jaxpr(lambda s: step(s)[0])(state).jaxpr)
+    jaxpr = str(jax.make_jaxpr(lambda s: make_stepper(p, Topology())(s)[0])(
+        state).jaxpr)
     assert "pallas_call" not in jaxpr
-    pair = make_euler_pair_stepper(p, topo)
-    if pair is not None:
-        assert "pallas_call" not in str(jax.make_jaxpr(pair)(state).jaxpr)

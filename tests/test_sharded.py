@@ -24,7 +24,7 @@ pytestmark = pytest.mark.slow
 
 
 def params(**kw):
-    d = dict(nx=32, ny=32, L0=4.0, dt=1e-6, dtype="float64", backend="xla",
+    d = dict(nx=32, ny=32, L0=4.0, dt=1e-6, dtype="float64",
              f32_transcendentals=False, S=0.25, m0=6.0,
              T_boundary=BoundaryType.NEUMANN, Phi_boundary=BoundaryType.NEUMANN)
     d.update(kw)
@@ -241,429 +241,3 @@ def test_multihost_driver_launcher(tmp_path, monkeypatch):
     assert b.iter == a.iter
     np.testing.assert_allclose(b.maps["F"], a.maps["F"], rtol=0, atol=1e-6)
     np.testing.assert_allclose(b.maps["U"], a.maps["U"], rtol=0, atol=1e-6)
-
-
-def test_sharded_euler_pair_stepper(monkeypatch, rng=None):
-    """The ghost-slab temporal-blocking pair stepper builds on y-meshes and
-    advances exactly like T single steps (interpret mode, forced backend)."""
-    import numpy as np
-
-    import bachelors_tpu as bt
-    import bachelors_tpu.ops.pallas_rhs as prhs
-    from bachelors_tpu.parallel.mesh import make_mesh, shard_state
-    from bachelors_tpu.parallel.topology import Topology
-    from bachelors_tpu.solvers.explicit import make_euler_pair_stepper
-    from bachelors_tpu.solvers.run import advance_n
-
-    if len(jax.devices()) < 4:
-        pytest.skip("needs 4 devices")
-
-    mesh, topo = make_mesh(shards_y=4)
-    p = bt.SimParams(nx=128, ny=64, L0=4.0, dt=5e-6, S=0.0,
-                     solver=bt.SolverType.EXPLICIT_EULER,
-                     dtype="float32", backend="pallas")
-
-    orig = prhs.euler2_pallas_sharded
-    monkeypatch.setattr(
-        prhs, "euler2_pallas_sharded",
-        lambda *a, **k: orig(*a, **{**k, "interpret": True}))
-
-    pair = make_euler_pair_stepper(p, topo, mesh=mesh)
-    assert pair is not None and pair.block_steps >= 2
-
-    # x-sharded and ensemble topologies must decline
-    mesh2, topo2 = make_mesh(shards_y=2, shards_x=2)
-    assert make_euler_pair_stepper(p, topo2, mesh=mesh2) is None
-
-    F, U = bt.make_initial_fields(p, bt.InitialConditions(
-        circle_center=(2.0, 2.0), circle_radius=0.4, circle_fade=4.0))
-    st = bt.make_state(F, U, p)
-    with jax.set_mesh(mesh):
-        sharded = shard_state(st, mesh, topo)
-        out = pair(sharded)
-
-    # oracle: T single steps on the unsharded XLA path
-    p_x = p.replace(backend="xla")
-    step = bt.make_stepper(p_x)
-    want = advance_n(step, st, pair.block_steps)
-    np.testing.assert_allclose(np.asarray(out.F), np.asarray(want.F),
-                               atol=2e-5, rtol=1e-4)
-    np.testing.assert_allclose(np.asarray(out.U), np.asarray(want.U),
-                               atol=2e-5, rtol=1e-4)
-    assert int(out.iter) == pair.block_steps
-
-
-def test_sharded_rkm_fullstep_solver_path(monkeypatch):
-    """The adaptive solver's sharded whole-attempt path (hoisted ghost
-    slabs + fused kernel) matches the XLA path (interpret, forced backend)."""
-    import numpy as np
-
-    import bachelors_tpu as bt
-    import bachelors_tpu.ops.pallas_rhs as prhs
-    from jax.sharding import PartitionSpec as P
-    from bachelors_tpu.parallel.mesh import make_mesh
-    from bachelors_tpu.parallel.sharded import make_sharded_stepper
-    from bachelors_tpu.parallel.topology import Topology
-    from bachelors_tpu.solvers.base import make_stepper
-
-    if len(jax.devices()) < 4:
-        pytest.skip("needs 4 devices")
-
-    mesh, topo = make_mesh(shards_y=4)
-    p = bt.SimParams(nx=128, ny=64, L0=4.0, dt=5e-6, S=0.25, m0=6.0,
-                     solver=bt.SolverType.EXPLICIT_RK4_ADAPTIVE,
-                     dtype="float32", backend="pallas", min_dt=1e-9)
-
-    orig_attempt = prhs.rkm_attempt_pallas_sharded
-    monkeypatch.setattr(
-        prhs, "rkm_attempt_pallas_sharded",
-        lambda *a, **k: orig_attempt(*a, **{**k, "interpret": True}))
-    # the staged stages would also need interpret; assert the full path ran
-    called = []
-    orig_call = prhs._fullstep_call_sharded
-    monkeypatch.setattr(
-        prhs, "_fullstep_call_sharded",
-        lambda *a, **k: called.append(1) or orig_call(*a, **k))
-
-    F, U = bt.make_initial_fields(p, bt.InitialConditions(
-        circle_center=(2.0, 2.0), circle_radius=0.4, circle_fade=4.0))
-    st = bt.make_state(F, U, p)
-
-    from bachelors_tpu.parallel.mesh import shard_state
-    with jax.set_mesh(mesh):
-        stepper = make_sharded_stepper(p, mesh, topo)
-        out, stats = stepper(shard_state(st, mesh, topo))
-
-    assert called, "sharded whole-attempt kernel did not engage"
-    want, _ = make_stepper(p.replace(backend="xla"))(st)
-    np.testing.assert_allclose(np.asarray(out.F), np.asarray(want.F),
-                               atol=2e-5, rtol=1e-4)
-    np.testing.assert_allclose(np.asarray(out.U), np.asarray(want.U),
-                               atol=2e-5, rtol=1e-4)
-    np.testing.assert_allclose(float(out.tau), float(want.tau), rtol=1e-4)
-
-
-@pytest.mark.dd_compile_heavy  # shard_map x df64 interpret: huge compile
-def test_sharded_dd_euler_pair_stepper():
-    """float64 on a y-mesh rides the ghost-slab df64 pair kernels: the
-    (hi, lo) slab exchange + in-kernel seam advancement matches T single
-    steps of the XLA f64 oracle at pair precision."""
-    import numpy as np
-
-    import bachelors_tpu as bt
-    import bachelors_tpu.ops.pallas_dd as pdd
-    from bachelors_tpu.parallel.mesh import make_mesh, shard_state
-    from bachelors_tpu.solvers.explicit import make_euler_pair_stepper
-    from bachelors_tpu.solvers.run import advance_n
-    from bachelors_tpu.solvers.base import make_stepper
-
-    if len(jax.devices()) < 2:
-        pytest.skip("needs 2 devices")
-
-    mesh, topo = make_mesh(shards_y=2)
-    p = bt.SimParams(nx=128, ny=64, L0=4.0, dt=5e-6, S=0.0,
-                     solver=bt.SolverType.EXPLICIT_EULER,
-                     dtype="float64", backend="pallas",
-                     f32_transcendentals=False)
-
-    pdd.FORCE_INTERPRET = True
-    try:
-        pair = make_euler_pair_stepper(p, topo, mesh=mesh)
-        assert pair is not None and pair.block_steps == 4
-
-        F, U = bt.make_initial_fields(p, bt.InitialConditions(
-            circle_center=(2.0, 2.0), circle_radius=0.4, circle_fade=4.0))
-        F = F.astype(jnp.float64)
-        U = U.astype(jnp.float64)
-        st = bt.make_state(F, U, p)
-        with jax.set_mesh(mesh):
-            out = pair(shard_state(st, mesh, topo))
-    finally:
-        pdd.FORCE_INTERPRET = False
-
-    p_x = p.replace(backend="xla")
-    want = advance_n(make_stepper(p_x), st, pair.block_steps)
-    scale = float(np.abs(np.asarray(want.F)).max())
-    assert np.abs(np.asarray(out.F) - np.asarray(want.F)).max() < 1e-12 * scale
-    assert np.abs(np.asarray(out.U) - np.asarray(want.U)).max() < 1e-12
-    assert int(out.iter) == pair.block_steps
-
-
-@pytest.mark.dd_compile_heavy
-def test_sharded_dd_euler_pair_seams_depth8(monkeypatch):
-    """Depth-8 temporal blocking consumes the FULL 8-row ghost slab: the
-    seam advancement's shrinking valid depth bottoms out at exactly one
-    ghost row for the 8th step (`ops/pallas_dd.py` halo budget 1..8).
-    Forces the HBM-regime policy (`euler_dd_block_steps` -> 8) on a tiny
-    grid via the threshold hook and checks two true shards against 8
-    single steps of the XLA f64 oracle at pair precision."""
-    import numpy as np
-
-    import bachelors_tpu as bt
-    import bachelors_tpu.ops.pallas_dd as pdd
-    from bachelors_tpu.parallel.mesh import make_mesh, shard_state
-    from bachelors_tpu.solvers.base import make_stepper
-    from bachelors_tpu.solvers.explicit import make_euler_pair_stepper
-    from bachelors_tpu.solvers.run import advance_n
-
-    if len(jax.devices()) < 2:
-        pytest.skip("needs 2 devices")
-
-    monkeypatch.setattr(pdd, "_EULER_DD_HBM_MIN_CELLS", 1)
-    mesh, topo = make_mesh(shards_y=2)
-    p = bt.SimParams(nx=128, ny=64, L0=4.0, dt=5e-6, S=0.0,
-                     solver=bt.SolverType.EXPLICIT_EULER,
-                     dtype="float64", backend="pallas",
-                     f32_transcendentals=False)
-
-    pdd.FORCE_INTERPRET = True
-    try:
-        pair = make_euler_pair_stepper(p, topo, mesh=mesh)
-        assert pair is not None and pair.block_steps == 8
-
-        F, U = bt.make_initial_fields(p, bt.InitialConditions(
-            circle_center=(2.0, 2.0), circle_radius=0.4, circle_fade=4.0))
-        F = F.astype(jnp.float64)
-        U = U.astype(jnp.float64)
-        st = bt.make_state(F, U, p)
-        with jax.set_mesh(mesh):
-            out = pair(shard_state(st, mesh, topo))
-    finally:
-        pdd.FORCE_INTERPRET = False
-
-    p_x = p.replace(backend="xla")
-    want = advance_n(make_stepper(p_x), st, 8)
-    scale = float(np.abs(np.asarray(want.F)).max())
-    assert np.abs(np.asarray(out.F) - np.asarray(want.F)).max() < 1e-12 * scale
-    assert np.abs(np.asarray(out.U) - np.asarray(want.U)).max() < 1e-12
-    assert int(out.iter) == 8
-
-
-def _run_dd_si_sharded(p, shards_y=2, shards_x=1):
-    """One sharded f64 S-I step through the dd path (interpret mode),
-    against the XLA f64 stepper on the full domain."""
-    import bachelors_tpu.ops.pallas_dd as pdd
-    from bachelors_tpu.ops.pallas_dd import wants_dd_si
-
-    mesh, topo = make_mesh(shards_y=shards_y, shards_x=shards_x)
-    F, U = bt.make_initial_fields(p, bt.InitialConditions(
-        circle_center=(2.0, 2.0), circle_radius=0.4, circle_fade=4.0))
-    F = F.astype(jnp.float64)
-    U = U.astype(jnp.float64)
-    st = bt.make_state(F, U, p)
-    pdd.FORCE_INTERPRET = True
-    try:
-        assert wants_dd_si(p, topo, p.ny // shards_y, p.nx // shards_x)
-        step = make_sharded_stepper(p, mesh, topo)
-        with jax.set_mesh(mesh):
-            out, _ = step(shard_state(st, mesh, topo))
-    finally:
-        pdd.FORCE_INTERPRET = False
-    want, _ = bt.make_stepper(p.replace(backend="xla"))(st)
-    dF = float(np.abs(np.asarray(want.F) - np.asarray(F)).max()) + 1e-30
-    dU = float(np.abs(np.asarray(want.U) - np.asarray(U)).max()) + 1e-30
-    assert np.abs(np.asarray(out.F) - np.asarray(want.F)).max() < 1e-6 * dF + 1e-12
-    assert np.abs(np.asarray(out.U) - np.asarray(want.U)).max() < 1e-6 * dU + 1e-12
-
-
-def test_sharded_dd_semi_implicit_stepper():
-    """float64 semi-implicit on a y-mesh rides the dd ghost-slab prepare
-    + ghost-row refinement residual kernels; the sharded step must match
-    the single-device XLA f64 stepper to the CG-tolerance scale."""
-    if len(jax.devices()) < 2:
-        pytest.skip("needs 2 devices")
-    p = bt.SimParams(nx=128, ny=64, L0=4.0, dt=5e-6, S=0.0,
-                     solver=SolverType.SEMI_IMPLICIT,
-                     dtype="float64", backend="pallas",
-                     f32_transcendentals=False,
-                     Phi_tolerance=1e-10, T_tolerance=1e-10,
-                     Phi_max_iters=60, T_max_iters=60)
-    _run_dd_si_sharded(p)
-
-
-def test_sharded_dd_semi_implicit_guess_stepper():
-    """The variable-s family (corrector-guess) on a y-mesh: the prepare's
-    s map + `aniso_residual_dd_sharded` ghost rows."""
-    if len(jax.devices()) < 2:
-        pytest.skip("needs 2 devices")
-    p = bt.SimParams(nx=128, ny=64, L0=4.0, dt=5e-6, S=0.0,
-                     solver=SolverType.SEMI_IMPLICIT,
-                     do_corrector_guess=True,
-                     dtype="float64", backend="pallas",
-                     f32_transcendentals=False,
-                     Phi_tolerance=1e-10, T_tolerance=1e-10,
-                     Phi_max_iters=60, T_max_iters=60)
-    _run_dd_si_sharded(p)
-
-
-# --- df64 x-sharded / 2D-mesh ghost columns (round 5) ---------------------
-#
-# The fused df64 kernels cover x- and 2D-sharded meshes via ghost COLUMNS
-# (`ops.pallas_dd.ghost_cols_dd`): the x twin of the 8-row slabs.  The
-# cheap single-stage graphs (Euler T=1, the S-I prepare + residuals) run in
-# the default suite; multi-stage chains live behind -m dd_compile_heavy
-# like their y-mesh counterparts.
-
-def _dd_p(**kw):
-    d = dict(nx=256, ny=64, L0=4.0, dt=5e-6, S=0.0,
-             solver=SolverType.EXPLICIT_EULER,
-             dtype="float64", backend="pallas", f32_transcendentals=False)
-    d.update(kw)
-    return bt.SimParams(**d)
-
-
-def _dd_fields(p, seed=3):
-    rng = np.random.default_rng(seed)
-    F = jnp.asarray(0.5 + 0.4 * np.sin(rng.normal(size=(p.ny, p.nx))),
-                    jnp.float64)
-    U = jnp.asarray(0.1 * rng.normal(size=(p.ny, p.nx)), jnp.float64)
-    return F, U
-
-
-def _run_dd_euler_seams(p, shards_y, shards_x, T):
-    """T fused sharded df64 Euler steps vs T single steps of the XLA f64
-    oracle on the full domain, at pair precision."""
-    import bachelors_tpu.ops.pallas_dd as pdd
-    from bachelors_tpu.ops.rhs import eval_rhs
-    from bachelors_tpu.parallel.topology import Topology
-    from jax.sharding import PartitionSpec as P
-
-    mesh, topo = make_mesh(shards_y=shards_y, shards_x=shards_x)
-    F, U = _dd_fields(p)
-    spec = P(topo.axis_y, topo.axis_x)
-
-    def run(F, U):
-        pair = pdd.state_to_pair(F, U)
-        out = pdd.euler_steps_dd_pair_sharded(pair, p, topo.axis_y, T=T,
-                                              interpret=True,
-                                              axis_x=topo.axis_x)
-        return pdd.pair_to_state(out)
-
-    sh = jax.shard_map(run, mesh=mesh, in_specs=(spec, spec),
-                       out_specs=(spec, spec), check_vma=False)
-    with jax.set_mesh(mesh):
-        nF, nU = sh(F, U)
-    p_or = p.replace(backend="xla")
-    wF, wU = F, U
-    for _ in range(T):
-        dF, dU = eval_rhs([(wF, wU)], [1.0], p_or, Topology())
-        wF, wU = wF + p.dt * dF, wU + p.dt * dU
-    scale = float(np.abs(np.asarray(wF)).max())
-    assert np.abs(np.asarray(nF) - np.asarray(wF)).max() < 1e-12 * scale
-    assert np.abs(np.asarray(nU) - np.asarray(wU)).max() < 1e-12
-
-
-@pytest.mark.parametrize("bc", [BoundaryType.NEUMANN, BoundaryType.PERIODIC,
-                                BoundaryType.DIRICHLET])
-def test_sharded_dd_euler_x_mesh(bc):
-    """float64 on an x-mesh rides the ghost-COLUMN df64 kernels: T=1
-    matches the XLA f64 oracle at pair precision for every BC."""
-    if len(jax.devices()) < 2:
-        pytest.skip("needs 2 devices")
-    _run_dd_euler_seams(_dd_p(Phi_boundary=bc, T_boundary=bc), 1, 2, T=1)
-
-
-@pytest.mark.parametrize("bc", [BoundaryType.NEUMANN, BoundaryType.PERIODIC])
-def test_sharded_dd_euler_2d_mesh(bc):
-    """2D (y x x) mesh: the two-phase exchange (x columns first, then
-    x-extended y slabs) supplies the diagonal corner data."""
-    if len(jax.devices()) < 4:
-        pytest.skip("needs 4 devices")
-    _run_dd_euler_seams(_dd_p(Phi_boundary=bc, T_boundary=bc), 2, 2, T=1)
-
-
-@pytest.mark.dd_compile_heavy  # 3-stage interpret graph
-@pytest.mark.parametrize("mesh_shape", [(1, 2), (2, 2)])
-def test_sharded_dd_euler_seams_depth3(mesh_shape):
-    """Depth-3 temporal blocking across x and 2D seams: the seam
-    recomputation reads ghost columns (and 2D corner data) at depth > 1,
-    which a single-phase exchange cannot supply."""
-    if len(jax.devices()) < mesh_shape[0] * mesh_shape[1]:
-        pytest.skip("needs devices")
-    _run_dd_euler_seams(_dd_p(), *mesh_shape, T=3)
-
-
-@pytest.mark.dd_compile_heavy  # depth-8: consumes the full 8-lane ghost slab
-def test_sharded_dd_euler_x_seams_depth8(monkeypatch):
-    """Depth-8 blocking bottoms out at exactly one ghost column for the
-    8th step (halo budget 1..8), mirroring the y-mesh depth-8 test."""
-    if len(jax.devices()) < 2:
-        pytest.skip("needs 2 devices")
-    _run_dd_euler_seams(_dd_p(), 1, 2, T=8)
-
-
-@pytest.mark.dd_compile_heavy  # 5-stage interpret graph
-def test_sharded_dd_rkm_x_mesh():
-    """The Merson attempt on an x-mesh: 5-deep ghost-column stage
-    recomputation + shard-local error maxima."""
-    import bachelors_tpu.ops.pallas_dd as pdd
-    from bachelors_tpu.ops.rhs import eval_rhs
-    from bachelors_tpu.parallel.topology import Topology
-    from jax.sharding import PartitionSpec as P
-
-    if len(jax.devices()) < 2:
-        pytest.skip("needs 2 devices")
-    p = _dd_p(solver=SolverType.EXPLICIT_RK4_ADAPTIVE)
-    mesh, topo = make_mesh(shards_x=2)
-    F, U = _dd_fields(p, seed=9)
-    tau = 3.7e-6
-    spec = P(None, "x")
-
-    def run(F, U):
-        pair = pdd.state_to_pair(F, U)
-        out, eF, eU = pdd.rkm_attempt_dd_pair_sharded(
-            pair, jnp.float64(tau), p, None, interpret=True, axis_x="x")
-        nF, nU = pdd.pair_to_state(out)
-        return nF, nU, jax.lax.pmax(eF, "x"), jax.lax.pmax(eU, "x")
-
-    sh = jax.shard_map(run, mesh=mesh, in_specs=(spec, spec),
-                       out_specs=(spec, spec, P(), P()), check_vma=False)
-    with jax.set_mesh(mesh):
-        nF, nU, eF, eU = sh(F, U)
-    p_or = p.replace(backend="xla")
-    topo0 = Topology()
-    one = 1.0
-    k1 = eval_rhs([(F, U)], [one], p_or, topo0)
-    k2 = eval_rhs([(F, U), k1], [one, tau / 3], p_or, topo0)
-    k3 = eval_rhs([(F, U), k1, k2], [one, tau / 6, tau / 6], p_or, topo0)
-    k4 = eval_rhs([(F, U), k1, k3], [one, tau / 8, 3 * tau / 8], p_or, topo0)
-    k5 = eval_rhs([(F, U), k1, k3, k4],
-                  [one, tau / 2, -3 * tau / 2, 2 * tau], p_or, topo0)
-    wF = F + tau / 6 * (k1[0] + 4 * k4[0] + k5[0])
-    wU = U + tau / 6 * (k1[1] + 4 * k4[1] + k5[1])
-    scale = float(np.abs(np.asarray(wF)).max())
-    assert np.abs(np.asarray(nF) - np.asarray(wF)).max() < 1e-12 * scale
-    assert np.abs(np.asarray(nU) - np.asarray(wU)).max() < 1e-12
-    weF = float(jnp.max(jnp.abs(
-        0.2 * k1[0] - 0.9 * k3[0] + 0.8 * k4[0] - 0.1 * k5[0])))
-    maxk = float(jnp.max(jnp.abs(k1[0])))
-    assert abs(float(eF) - weF) <= 6e-8 * weF + 3e-13 * maxk
-
-
-def test_sharded_dd_semi_implicit_x_mesh():
-    """float64 semi-implicit on an x-mesh: ghost-column dd prepare +
-    ghost-column CG matvecs + ghost-column refinement residuals."""
-    if len(jax.devices()) < 2:
-        pytest.skip("needs 2 devices")
-    p = bt.SimParams(nx=256, ny=64, L0=4.0, dt=5e-6, S=0.0,
-                     solver=SolverType.SEMI_IMPLICIT,
-                     dtype="float64", backend="pallas",
-                     f32_transcendentals=False,
-                     Phi_tolerance=1e-10, T_tolerance=1e-10,
-                     Phi_max_iters=60, T_max_iters=60)
-    _run_dd_si_sharded(p, shards_y=1, shards_x=2)
-
-
-def test_sharded_dd_semi_implicit_2d_mesh():
-    """float64 semi-implicit on a 2x2 mesh (ghost rows AND columns), with
-    the variable-s corrector-guess family exercising the aniso residual."""
-    if len(jax.devices()) < 4:
-        pytest.skip("needs 4 devices")
-    p = bt.SimParams(nx=256, ny=64, L0=4.0, dt=5e-6, S=0.0,
-                     solver=SolverType.SEMI_IMPLICIT,
-                     do_corrector_guess=True,
-                     dtype="float64", backend="pallas",
-                     f32_transcendentals=False,
-                     Phi_tolerance=1e-10, T_tolerance=1e-10,
-                     Phi_max_iters=60, T_max_iters=60)
-    _run_dd_si_sharded(p, shards_y=2, shards_x=2)

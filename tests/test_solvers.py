@@ -13,7 +13,7 @@ from bachelors_tpu.parallel.topology import Topology
 
 def base_params(**kw):
     d = dict(nx=32, ny=32, L0=4.0, dt=5e-6, dtype="float64",
-             f32_transcendentals=False, backend="xla",
+             f32_transcendentals=False,
              T_boundary=BoundaryType.NEUMANN, Phi_boundary=BoundaryType.NEUMANN)
     d.update(kw)
     return bt.SimParams(**d)
@@ -194,8 +194,7 @@ def test_f32_semi_implicit_converges_below_cap():
     # L0=1 at 128^2 reproduces the benchmark ladder's dx (scale multiplies
     # nx and L0 together, `config.h:481-490`)
     p = bt.SimParams(nx=128, ny=128, L0=1.0, dt=5e-6, S=0.0,
-                     solver=bt.SolverType.SEMI_IMPLICIT, dtype="float32",
-                     backend="xla", Phi_tolerance=5e-9, T_tolerance=5e-9,
+                     solver=bt.SolverType.SEMI_IMPLICIT, dtype="float32", Phi_tolerance=5e-9, T_tolerance=5e-9,
                      Phi_max_iters=20, T_max_iters=20, do_stats=True,
                      xi=0.0043, alpha=3.0, beta=1400.0)
     F, U = bt.make_initial_fields(p, bt.InitialConditions(
